@@ -1,0 +1,89 @@
+"""flax parameter trees → the port's ``state_dict``s.
+
+Input: the ``params`` collection of a flax model as nested dicts of NumPy
+arrays (``jax.device_get`` of the tree, or a restored checkpoint), with
+or without the outer ``{"params": ...}``. Output: a ``state_dict`` that
+the matching port module loads with ``load_state_dict``.
+
+Layout rules (``srgan_tpu_torch.models.dcgan``):
+
+* ``Conv_i`` kernel [kh, kw, in, out] → weight [out, in, kh, kw].
+* ``ConvTranspose_i`` kernel [kh, kw, in, out] → weight [in, out, kh, kw]
+  flipped in H and W (flax does not flip the kernel of a transposed conv;
+  ``conv_transpose2d`` does).
+* ``Dense_i`` kernel [in, out] → weight [out, in].
+* ``GroupNorm_i`` scale / bias → ``norms.i.scale`` / ``norms.i.bias``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _tree(params: Mapping) -> Mapping:
+    return params["params"] if "params" in params else params
+
+
+def _tensor(array) -> torch.Tensor:
+    return torch.from_numpy(np.array(array, np.float32, order="C"))
+
+
+def conv_weight(kernel) -> torch.Tensor:
+    return _tensor(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+
+
+def conv_transpose_weight(kernel) -> torch.Tensor:
+    flipped = np.asarray(kernel)[::-1, ::-1]
+    return _tensor(np.transpose(flipped, (2, 3, 0, 1)))
+
+
+def dense_weight(kernel) -> torch.Tensor:
+    return _tensor(np.asarray(kernel).T)
+
+
+def _norms(tree: Mapping, count: int) -> StateDict:
+    out = {}
+    for i in range(count):
+        leaf = tree[f"GroupNorm_{i}"]
+        out[f"norms.{i}.scale"] = _tensor(leaf["scale"])
+        out[f"norms.{i}.bias"] = _tensor(leaf["bias"])
+    return out
+
+
+def joint_cnn_state_dict(params: Mapping) -> StateDict:
+    """flax ``JointCNN`` → ``srgan_tpu_torch.models.crowd.JointCNN``
+    (with or without norms)."""
+    tree = _tree(params)
+    out: StateDict = {}
+    for i in range(4):
+        leaf = tree[f"Conv_{i}"]
+        out[f"convs.{i}.weight"] = conv_weight(leaf["kernel"])
+        out[f"convs.{i}.bias"] = _tensor(leaf["bias"])
+    if "GroupNorm_0" in tree:
+        out.update(_norms(tree, 4))
+    for head in ("density_head", "count_head"):
+        out[f"{head}.weight"] = conv_weight(tree[head]["kernel"])
+        out[f"{head}.bias"] = _tensor(tree[head]["bias"])
+    return out
+
+
+def generator_state_dict(params: Mapping) -> StateDict:
+    """flax ``DCGANGenerator`` / ``CrowdDCGenerator`` →
+    ``srgan_tpu_torch.models.dcgan.DCGANGenerator``."""
+    tree = _tree(params)
+    out: StateDict = {
+        "dense.weight": dense_weight(tree["Dense_0"]["kernel"]),
+        "dense.bias": _tensor(tree["Dense_0"]["bias"]),
+    }
+    num_ups = sum(1 for name in tree if name.startswith("ConvTranspose_"))
+    for i in range(num_ups):
+        leaf = tree[f"ConvTranspose_{i}"]
+        out[f"deconvs.{i}.weight"] = conv_transpose_weight(leaf["kernel"])
+        out[f"deconvs.{i}.bias"] = _tensor(leaf["bias"])
+    out.update(_norms(tree, num_ups))  # one after Dense, one per inner deconv
+    return out

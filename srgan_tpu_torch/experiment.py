@@ -1,0 +1,224 @@
+"""The Experiment orchestrator: trial directory, summaries, seeding and
+the training loop.
+
+The port of ``srgan_tpu.experiment.Experiment`` (``train``,
+``training_loop``, ``prepare_summary_writers``) on one device. The loop
+enqueues steps without waiting for the device and synchronizes only on
+summary steps, where it reads the metrics.
+
+Not ported yet (``ROADMAP.md``): checkpoints (save, resume), evaluation
+and validation summaries, profiling, the mesh, and the apps other than
+crowd. A setting that asks for one of them raises
+``NotImplementedError`` (:func:`check_supported`).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, Optional
+
+import torch
+
+from srgan_tpu_torch.settings import Settings
+from srgan_tpu_torch.train import (ModelBundle, SRGANTrainState,
+                                   default_labeled_loss_fn, init_train_state,
+                                   make_gan_train_step,
+                                   set_float32_precision)
+from srgan_tpu_torch.utils.seeding import generator_for, seed_all
+from srgan_tpu_torch.utils.summary import SummaryWriter, make_trial_directory
+
+# Settings of features the port does not run yet, with the value that
+# keeps each one off.
+_UNPORTED = {
+    "load_model_path": None,
+    "save_step_period": None,
+    "dnn_only": False,
+    "profile_step_range": None,
+    "debug_nans": False,
+    "steps_per_dispatch": 1,
+    "model_parallel_devices": 1,
+    "crowd_host_pipeline": False,
+    "crowd_hbm_window": 0,
+    "crowd_shard_dataset": False,
+    "crowd_rescale_factors": (),
+    "crowd_label_type": "density",
+    "crowd_model": "jointcnn",
+    "norm_impl": "xla",
+}
+
+
+def check_supported(settings: Settings) -> None:
+    """Raise ``NotImplementedError`` for a setting the port does not run."""
+    for name, off in _UNPORTED.items():
+        value = getattr(settings, name)
+        if isinstance(off, tuple):
+            value = tuple(value)
+        if value != off:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported to PyTorch yet (see "
+                f"ROADMAP.md); the port runs {name}={off!r}")
+    if settings.data_parallel_devices not in (None, 1):
+        raise NotImplementedError(
+            f"data_parallel_devices={settings.data_parallel_devices} is not "
+            f"ported to PyTorch yet; the port trains on one device")
+
+
+def default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+class Experiment:
+    """Orchestrates one SR-GAN trial on one device.
+
+    Subclasses bind an application by implementing :meth:`dataset_setup`,
+    :meth:`model_setup` and :meth:`epoch_batch_iterators`.
+    """
+
+    def __init__(self, settings: Settings,
+                 device: Optional[torch.device | str] = None):
+        self.settings = settings
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.trial_directory: Optional[str] = None
+        self.dnn_summary_writer: Optional[SummaryWriter] = None
+        self.gan_summary_writer: Optional[SummaryWriter] = None
+        self.labeled_dataset = None
+        self.unlabeled_dataset = None
+        self.models: Optional[ModelBundle] = None
+        self.state: Optional[SRGANTrainState] = None
+        self._train_step = None
+        self._rng: Optional[torch.Generator] = None
+        # Offsets every host-side data RNG; nonzero only after a resume.
+        self._start_step = 0
+
+    # ------------------------------------------------------------ abstract
+    def dataset_setup(self) -> None:
+        raise NotImplementedError
+
+    def model_setup(self) -> ModelBundle:
+        """Return the models, on ``self.device``."""
+        raise NotImplementedError
+
+    def labeled_loss_fn(self):
+        return default_labeled_loss_fn(self.settings)
+
+    def latent_shape(self):
+        return (self.settings.latent_dimension,)
+
+    def epoch_batch_iterators(self):
+        """Endless generator of per-epoch iterators of device-ready
+        ``(labeled_x, labels, unlabeled_x)`` triples."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------- plumbing
+    def prepare_summary_writers(self) -> None:
+        """Two writers, so the DNN baseline and the SR-GAN compare
+        directly."""
+        period = self.settings.summary_step_period
+        self.dnn_summary_writer = SummaryWriter(
+            os.path.join(self.trial_directory, "DNN"), period)
+        self.gan_summary_writer = SummaryWriter(
+            os.path.join(self.trial_directory, "GAN"), period)
+
+    def prepare_train_step(self) -> None:
+        self._train_step = make_gan_train_step(
+            self.settings, labeled_loss_fn=self.labeled_loss_fn(),
+            latent_shape=self.latent_shape())
+        self._rng = generator_for(self.settings.seed, "train", self.device,
+                                  start=self._start_step)
+
+    def close(self) -> None:
+        for writer in (self.dnn_summary_writer, self.gan_summary_writer):
+            if writer is not None:
+                writer.close()
+
+    # ------------------------------------------------------------- training
+    def train(self) -> SRGANTrainState:
+        """Full trial: trial directory, summaries, data, models, loop.
+
+        The port has no checkpoints yet: ``train()`` saves nothing, and
+        the returned state lives only in this process.
+        """
+        settings = self.settings
+        check_supported(settings)
+        set_float32_precision()
+        try:
+            self.trial_directory = make_trial_directory(settings)
+            self.prepare_summary_writers()
+            seed_all(settings.seed)
+            self.dataset_setup()
+            self.models = self.model_setup()
+            self.state = init_train_state(settings, self.models)
+            self.prepare_train_step()
+            self.training_loop()
+            return self.state
+        finally:
+            self.close()
+
+    def training_loop(self) -> None:
+        """Epochs of labeled batches, each step the fused GAN + DNN
+        update; summaries every ``summary_step_period`` steps."""
+        settings = self.settings
+        step = self.state.step
+        steps_per_epoch = self.steps_per_epoch()
+        if settings.epochs_to_run is not None:
+            total_steps = settings.epochs_to_run * steps_per_epoch
+        else:
+            total_steps = settings.steps_to_run
+        last_summary_time = None
+        last_summary_step = step
+        epoch = step // steps_per_epoch
+        epochs = self.epoch_batch_iterators()
+        while step < total_steps:
+            for labeled_x, labels, unlabeled_x in next(epochs):
+                self.state, step_metrics = self._train_step(
+                    self.state, labeled_x, labels, unlabeled_x, self._rng)
+                self.gan_summary_writer.step = step
+                self.dnn_summary_writer.step = step
+                if self.gan_summary_writer.is_summary_step():
+                    self.write_step_summaries(step_metrics)
+                    # Reading the metrics synchronized with the device.
+                    now = time.perf_counter()
+                    if last_summary_time is not None \
+                            and step > last_summary_step:
+                        steps_per_sec = ((step - last_summary_step)
+                                         / (now - last_summary_time))
+                        self.gan_summary_writer.add_scalar(
+                            "throughput/steps_per_second", steps_per_sec)
+                        self.gan_summary_writer.add_scalar(
+                            "throughput/examples_per_second",
+                            steps_per_sec * settings.batch_size)
+                    last_summary_time = now
+                    last_summary_step = step
+                step += 1
+                if (settings.validation_step_period
+                        and step % settings.validation_step_period == 0):
+                    self.validation_summaries(
+                        epoch=step // steps_per_epoch, step=step)
+                if step >= total_steps:
+                    break
+            epoch += 1
+            if not settings.validation_step_period:
+                self.validation_summaries(epoch=epoch, step=step)
+
+    def steps_per_epoch(self) -> int:
+        return max(1, len(self.labeled_dataset) // self.settings.batch_size)
+
+    def write_step_summaries(self, step_metrics: Dict[str, torch.Tensor]
+                             ) -> None:
+        # One device→host copy for the whole dict.
+        names = list(step_metrics)
+        values = torch.stack([step_metrics[k].float() for k in names]).cpu()
+        for key, value in zip(names, values.tolist()):
+            writer = (self.dnn_summary_writer if key.startswith("dnn")
+                      else self.gan_summary_writer)
+            writer.add_scalar(key, value)
+
+    # ------------------------------------------------------------ validation
+    def validation_summaries(self, epoch: int, step: int) -> None:
+        raise NotImplementedError(
+            "validation summaries (crowd grid evaluation) are not ported to "
+            "PyTorch yet: see ROADMAP.md, queue 1, 'Evaluation'. Set "
+            "validation_step_period past the end of the run to train "
+            "without them.")

@@ -1,0 +1,131 @@
+"""SR-GAN loss stack, as plain tensor functions.
+
+The port of ``srgan_tpu.losses``: the same streams over explicit feature
+tensors.
+
+* labeled:      mean ``|pred − label|^order`` on the labeled batch.
+* unlabeled:    feature matching — norm distance between the batch-mean
+                D features of the labeled and of the unlabeled batch.
+* fake:         feature contrasting — log-scaled NEGATIVE distance that
+                pushes the fake batch-mean features away from the
+                unlabeled ones.
+* gradient penalty: ``mean((‖∇_x interp_loss‖₂ − 1)²) · multiplier`` at
+                unlabeled↔fake interpolates; the caller takes the input
+                gradient with ``torch.autograd.grad(..., create_graph=True)``.
+* generator:    pull the fake batch-mean features toward the unlabeled ones.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+Tensor = torch.Tensor
+
+
+def mean_features(features: Tensor) -> Tensor:
+    """Batch-mean feature vector: [B, F] → [F] (any trailing dims)."""
+    return features.reshape(features.shape[0], -1).mean(dim=0)
+
+
+def feature_distance(base_features: Tensor, other_features: Tensor,
+                     order: float = 2.0, epsilon: float = 1e-12) -> Tensor:
+    """``(Σ_i |mean(base)_i − mean(other)_i|^order)^(1/order)``;
+    ``epsilon`` keeps the fractional-power gradient finite at 0."""
+    diff = (mean_features(base_features)
+            - mean_features(other_features)).abs()
+    if order == 1.0:
+        return diff.sum()
+    if order == 2.0:
+        return torch.sqrt(diff.square().sum() + epsilon)
+    return torch.pow(torch.pow(diff + epsilon, order).sum(), 1.0 / order)
+
+
+def abs_mean(x: Tensor) -> Tensor:
+    return x.abs().mean()
+
+
+def square_mean(x: Tensor) -> Tensor:
+    return x.square().mean()
+
+
+def abs_plus_one_log(x: Tensor) -> Tensor:
+    """``log(|x| + 1)``."""
+    return torch.log(x.abs() + 1.0)
+
+
+def abs_plus_one_log_neg(x: Tensor) -> Tensor:
+    """``−log(|x| + 1)``: minimizing it pushes distributions apart with a
+    gradient that decays as 1/(d+1)."""
+    return -abs_plus_one_log(x)
+
+
+_CONTRASTING_SCALES: dict = {
+    "log": abs_plus_one_log_neg,
+    "linear": lambda d: -d,
+}
+
+
+def contrasting_scale_fn(name: str) -> Callable[[Tensor], Tensor]:
+    try:
+        return _CONTRASTING_SCALES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown contrasting_distance_function {name!r}; "
+            f"choose from {sorted(_CONTRASTING_SCALES)}") from None
+
+
+def labeled_loss(predictions: Tensor, labels: Tensor,
+                 order: float = 2.0) -> Tensor:
+    """Supervised regression loss: mean |pred − label|^order."""
+    err = (predictions.float() - labels.float()).abs()
+    if order == 2.0:
+        return err.square().mean()
+    if order == 1.0:
+        return err.mean()
+    return torch.pow(err, order).mean()
+
+
+def unlabeled_loss(labeled_features: Tensor, unlabeled_features: Tensor,
+                   multiplier: float = 1.0, order: float = 2.0) -> Tensor:
+    """Feature matching between labeled and unlabeled batch-mean features."""
+    return feature_distance(labeled_features, unlabeled_features,
+                            order=order) * multiplier
+
+
+def fake_loss(unlabeled_features: Tensor, fake_features: Tensor,
+              multiplier: float = 1.0, order: float = 1.0,
+              distance_function: str = "log") -> Tensor:
+    """Feature contrasting: scaled NEGATIVE unlabeled↔fake distance."""
+    dist = feature_distance(unlabeled_features, fake_features, order=order)
+    return contrasting_scale_fn(distance_function)(dist) * multiplier
+
+
+def generator_loss(unlabeled_features: Tensor, fake_features: Tensor,
+                   order: float = 2.0) -> Tensor:
+    """G objective: distance of the fake batch-mean features to the
+    unlabeled ones."""
+    return feature_distance(unlabeled_features, fake_features, order=order)
+
+
+def per_example_gradient_norm(gradients: Tensor) -> Tensor:
+    """L2 norm of each example's input gradient: [B, ...] → [B]."""
+    flat = gradients.reshape(gradients.shape[0], -1).float()
+    return torch.sqrt(flat.square().sum(dim=1) + 1e-12)
+
+
+def gradient_penalty(interpolate_gradients: Tensor,
+                     multiplier: float = 10.0) -> Tensor:
+    """WGAN-GP-style penalty ``mean((‖∇‖₂ − 1)²) * multiplier``."""
+    norms = per_example_gradient_norm(interpolate_gradients)
+    return (norms - 1.0).square().mean() * multiplier
+
+
+def interpolate_inputs(alpha: Tensor, unlabeled_examples: Tensor,
+                       fake_examples: Tensor) -> Tensor:
+    """Per-example convex combination ``α·unlabeled + (1−α)·fake``;
+    ``alpha`` is [B], broadcast over the trailing dims."""
+    alpha = alpha.reshape((alpha.shape[0],)
+                          + (1,) * (unlabeled_examples.dim() - 1))
+    return alpha * unlabeled_examples + (1.0 - alpha) * fake_examples

@@ -1,0 +1,245 @@
+"""Layers with flax semantics, GroupNorm + activation, and the DCGAN
+generator.
+
+The port of ``srgan_tpu.models.dcgan`` (``norm_act`` with the default
+``impl="xla"``, and ``DCGANGenerator``). Tensors are NCHW, and the models
+keep them in ``channels_last`` memory, which is the JAX package's NHWC
+layout in memory.
+
+What differs from torch's own layers, and is matched here:
+
+* ``SAME`` padding as flax computes it. A stride-2 3×3 conv on an even
+  input pads (0, 1), bottom/right only; torch's ``padding=1`` would pad
+  (1, 1) and shift the sampling grid.
+* A flax ``ConvTranspose`` does not flip its kernel. Its k4 s2 ``SAME``
+  form equals ``conv_transpose2d(padding=1)`` with the kernel flipped in
+  H and W, which is how :class:`ConvTranspose` stores it.
+* GroupNorm uses ε = 1e-6 and flax's single-pass variance E[x²] − E[x]²,
+  with the statistics in float32 whatever the compute dtype.
+* The bf16 policy mirrors flax ``dtype=``: parameters stay float32; each
+  conv and dense layer casts its input and its parameters to the compute
+  dtype; GroupNorm computes in float32 and returns the compute dtype.
+* Random init follows flax's defaults: LeCun-normal kernels (a normal
+  truncated at ±2σ, σ = 1/√fan_in / 0.8796), zero biases, unit norm
+  scales. It draws from an explicit ``torch.Generator`` (``rng``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# Standard deviation of a unit normal truncated to [-2, 2]: flax divides
+# by it so that the truncated draw keeps the requested variance.
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(tensor: torch.Tensor, fan_in: int,
+                  rng: torch.Generator) -> torch.Tensor:
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+    with torch.no_grad():
+        return nn.init.trunc_normal_(tensor, std=std, a=-2 * std,
+                                     b=2 * std, generator=rng)
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax/XLA ``SAME`` padding (low, high) of one spatial dim."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` with ``padding="SAME"``: weight [out, in, k, k]."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, *, dtype: torch.dtype,
+                 rng: torch.Generator, zero_init: bool = False,
+                 bias_value: float = 0.0):
+        super().__init__()
+        self.stride = stride
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.zeros(out_channels, in_channels, kernel, kernel))
+        self.bias = nn.Parameter(torch.full((out_channels,),
+                                            float(bias_value)))
+        if not zero_init:
+            lecun_normal_(self.weight, in_channels * kernel * kernel,
+                          rng)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        (h_lo, h_hi), (w_lo, w_hi) = (
+            same_padding(size, k, self.stride) for size in x.shape[-2:])
+        x = x.to(self.dtype)
+        if (h_lo, w_lo) == (h_hi, w_hi):
+            padding = (h_lo, w_lo)
+        else:
+            x = F.pad(x, (w_lo, w_hi, h_lo, h_hi))
+            padding = 0
+        return F.conv2d(x, self.weight.to(self.dtype),
+                        self.bias.to(self.dtype), stride=self.stride,
+                        padding=padding)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose(k=4, strides=2, padding="SAME")``.
+
+    weight is [in, out, 4, 4]: the flax kernel [4, 4, in, out] transposed
+    and flipped in H and W (``srgan_tpu_torch.convert``).
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, *,
+                 dtype: torch.dtype, rng: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(in_channels, out_channels,
+                                               4, 4))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+        lecun_normal_(self.weight, in_channels * 16, rng)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x.to(self.dtype),
+                                  self.weight.to(self.dtype),
+                                  self.bias.to(self.dtype), stride=2,
+                                  padding=1)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: weight [out, in] (the flax kernel transposed)."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 dtype: torch.dtype, rng: torch.Generator):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        lecun_normal_(self.weight, in_features, rng)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` over NCHW: float32 single-pass statistics per
+    (example, group), ε = 1e-6, output in the compute dtype."""
+
+    def __init__(self, channels: int, num_groups: int, *,
+                 dtype: torch.dtype, epsilon: float = 1e-6):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"{num_groups} groups do not divide "
+                             f"{channels} channels")
+        self.num_groups = num_groups
+        self.dtype = dtype
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        g = self.num_groups
+        # Splitting C into (G, C/G) is a view in either memory format.
+        xf = x.float().reshape(b, g, c // g, h, w)
+        axes = (2, 3, 4)
+        mean = xf.mean(dim=axes, keepdim=True)
+        var = (xf.square().mean(dim=axes, keepdim=True)
+               - mean.square()).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.view(
+            1, g, c // g, 1, 1)
+        y = (xf - mean) * mul + self.bias.view(1, g, c // g, 1, 1)
+        return y.reshape(b, c, h, w).to(self.dtype)
+
+
+def group_norm(width: int, dtype: torch.dtype,
+               max_groups: int = 32) -> GroupNorm:
+    """The model-wide norm layer: ``min(max_groups, width)`` groups."""
+    return GroupNorm(width, min(max_groups, width), dtype=dtype)
+
+
+def norm_act(x: torch.Tensor, norm: GroupNorm,
+             negative_slope: float = 0.0) -> torch.Tensor:
+    """GroupNorm + LeakyReLU(``negative_slope``); slope 0 is ReLU.
+
+    The JAX package's default ``impl="xla"``. Its fused Pallas kernel
+    (``impl="pallas"``) is not ported yet.
+    """
+    x = norm(x)
+    return (F.leaky_relu(x, negative_slope) if negative_slope
+            else F.relu(x))
+
+
+def generator_geometry(image_size: int) -> Tuple[int, int, int]:
+    """(seed side, number of doublings, side after the last doubling).
+
+    A seed side that reaches ``image_size`` exactly by doubling (224 =
+    7·2⁵) when the odd factor is at most 7; otherwise 4, doubled past the
+    target and center-cropped.
+    """
+    if image_size % 8:
+        raise ValueError(f"image_size {image_size} must be divisible by 8")
+    start = image_size
+    num_ups = 0
+    while start % 2 == 0 and start > 7:
+        start //= 2
+        num_ups += 1
+    if start > 7:
+        start = 4
+        num_ups = 0
+        size = start
+        while size < image_size:
+            size *= 2
+            num_ups += 1
+    else:
+        size = start * (2 ** num_ups)
+    return start, num_ups, size
+
+
+class DCGANGenerator(nn.Module):
+    """z → image via stride-2 transposed convolutions; ``tanh``-bounded
+    to [-1, 1]. Returns float32 NCHW in ``channels_last`` memory."""
+
+    def __init__(self, image_size: int = 64, channels: int = 3,
+                 base_width: int = 64, latent_dimension: int = 100, *,
+                 dtype: torch.dtype = torch.float32,
+                 rng: torch.Generator):
+        super().__init__()
+        self.image_size = image_size
+        self.dtype = dtype
+        self.start, num_ups, self.size = generator_geometry(image_size)
+        self.width = base_width * (2 ** (num_ups - 1))
+        self.dense = Dense(latent_dimension,
+                           self.start * self.start * self.width,
+                           dtype=dtype, rng=rng)
+        self.norms = nn.ModuleList([group_norm(self.width, dtype)])
+        self.deconvs = nn.ModuleList()
+        width = self.width
+        for i in range(num_ups):
+            out_width = (base_width * (2 ** (num_ups - 2 - i))
+                         if i < num_ups - 1 else channels)
+            self.deconvs.append(ConvTranspose(width, out_width, dtype=dtype,
+                                              rng=rng))
+            if i < num_ups - 1:
+                self.norms.append(group_norm(out_width, dtype))
+            width = out_width
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = self.dense(z)
+        # The flax Dense output is reshaped NHWC; the permute makes it NCHW
+        # in channels_last memory without a copy.
+        x = x.view(x.shape[0], self.start, self.start,
+                   self.width).permute(0, 3, 1, 2)
+        x = norm_act(x, self.norms[0])
+        for i, deconv in enumerate(self.deconvs):
+            x = deconv(x)
+            if i + 1 < len(self.norms):
+                x = norm_act(x, self.norms[i + 1])
+        if self.size != self.image_size:
+            m = (self.size - self.image_size) // 2
+            x = x[:, :, m:m + self.image_size, m:m + self.image_size]
+        return torch.tanh(x).float()

@@ -1,0 +1,256 @@
+"""The SR-GAN training step.
+
+The port of ``srgan_tpu.train``: ``make_optimizer``, ``init_train_state``
+and ``make_gan_train_step``. One step runs, in this order:
+
+1. the D update: labeled, unlabeled and fake streams through one D
+   forward over the concatenated 3B batch, plus the gradient penalty at
+   unlabeled↔fake interpolates (a double backward);
+2. the G update, against the UPDATED D;
+3. the update of the supervised DNN baseline on the same labeled batch.
+
+Each model's gradient is taken with ``torch.autograd.grad`` over its own
+parameters, so no stray gradients collect in another model's ``.grad``;
+then its Adam takes a step. PyTorch runs eagerly: the step updates the
+modules and optimizers of the state in place, where the JAX step returns
+a new state.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from srgan_tpu_torch import losses
+from srgan_tpu_torch.settings import Settings
+from srgan_tpu_torch.utils.mixture import sample_offset_normal
+
+Tensor = torch.Tensor
+
+
+def set_float32_precision() -> None:
+    """float32 means float32 on the card: TF32 off for matmuls AND for
+    cuDNN convolutions (whose default is on). The float32 configuration
+    is the one held to the JAX package; the bfloat16 flagship does not
+    use TF32 either way."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    """The three models of one SR-GAN trial.
+
+    * ``d(x) -> (prediction, features)`` — the discriminator
+    * ``g(z) -> fake_examples``
+    * ``dnn(x) -> (prediction, features)`` — the supervised baseline
+    """
+    d: nn.Module
+    g: nn.Module
+    dnn: Optional[nn.Module] = None
+
+
+@dataclasses.dataclass
+class SRGANTrainState:
+    """All learnable state of a trial: the models and their optimizers."""
+    step: int
+    d: nn.Module
+    d_opt: Optimizer
+    g: nn.Module
+    g_opt: Optimizer
+    dnn: Optional[nn.Module] = None
+    dnn_opt: Optional[Optimizer] = None
+
+
+class Optimizer:
+    """Adam (AdamW when decayed) after optional global-norm clipping.
+
+    optax's ``clip_by_global_norm`` scales the gradients by
+    ``max_norm / norm`` when ``norm > max_norm``, with no ε, which is what
+    :meth:`step` does (``clip_grad_norm_`` would divide by norm + 1e-6).
+    """
+
+    def __init__(self, settings: Settings, params: List[nn.Parameter],
+                 weight_decay: bool):
+        self.params = params
+        self.clip_norm = settings.gradient_clip_norm
+        kwargs = dict(lr=settings.learning_rate,
+                      betas=(settings.adam_b1, settings.adam_b2), eps=1e-8)
+        if weight_decay and settings.weight_decay > 0.0:
+            self.adam = torch.optim.AdamW(
+                params, weight_decay=settings.weight_decay, **kwargs)
+        else:
+            self.adam = torch.optim.Adam(params, weight_decay=0.0, **kwargs)
+
+    def step(self, grads: Tuple[Tensor, ...]) -> None:
+        if self.clip_norm > 0.0:
+            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            factor = torch.where(norm < self.clip_norm,
+                                 torch.ones_like(norm),
+                                 self.clip_norm / norm)
+            grads = tuple(g * factor for g in grads)
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.adam.step()
+
+
+def make_optimizer(settings: Settings, params, weight_decay: bool = False
+                   ) -> Optimizer:
+    """Adam (AdamW when decayed), clipped when ``gradient_clip_norm > 0``.
+
+    ``torch.optim.Adam`` and ``optax.adam`` compute the same update,
+    ``lr · m̂ / (√v̂ + ε)`` with ε = 1e-8.
+    """
+    return Optimizer(settings, list(params), weight_decay)
+
+
+def init_train_state(settings: Settings, models: ModelBundle
+                     ) -> SRGANTrainState:
+    return SRGANTrainState(
+        step=0,
+        d=models.d, d_opt=make_optimizer(settings, models.d.parameters(),
+                                         weight_decay=True),
+        g=models.g, g_opt=make_optimizer(settings, models.g.parameters()),
+        dnn=models.dnn,
+        dnn_opt=(make_optimizer(settings, models.dnn.parameters(),
+                                weight_decay=True)
+                 if models.dnn is not None else None))
+
+
+def default_labeled_loss_fn(settings: Settings):
+    order = settings.labeled_loss_order
+    return lambda predictions, labels: losses.labeled_loss(
+        predictions, labels, order=order)
+
+
+def _slice_predictions(predictions, end: int):
+    if isinstance(predictions, (tuple, list)):
+        return type(predictions)(p[:end] for p in predictions)
+    return predictions[:end]
+
+
+def make_gan_train_step(
+    settings: Settings,
+    labeled_loss_fn: Optional[Callable] = None,
+    latent_shape: Optional[Tuple[int, ...]] = None,
+) -> Callable[..., Tuple[SRGANTrainState, Dict[str, Tensor]]]:
+    """Build the fused (D + G [+ DNN]) step.
+
+    ``step(state, labeled_x, labels, unlabeled_x, rng, z_d=None, z_g=None,
+    alpha=None) -> (state, metrics)``. ``rng`` is a ``torch.Generator`` on
+    the batch's device; it draws z_d, α and z_g (in that order) unless
+    they are given, which is how a test feeds the step the JAX package's
+    draws. ``metrics`` holds 0-dim tensors on the device: reading them
+    synchronizes, so the training loop reads them only on summary steps.
+    """
+    labeled_loss_fn = labeled_loss_fn or default_labeled_loss_fn(settings)
+    z_dim = settings.latent_dimension
+    period = settings.generator_training_step_period
+    unl_mult = settings.unlabeled_loss_multiplier
+    fake_mult = settings.fake_loss_multiplier
+    gp_mult = settings.gradient_penalty_multiplier
+
+    def sample_z(rng: torch.Generator, batch: int) -> Tensor:
+        shape = (batch,) + tuple(latent_shape or (z_dim,))
+        return sample_offset_normal(rng, shape, settings.mean_offset)
+
+    def contrast(f_u: Tensor, f_other: Tensor) -> Tensor:
+        return losses.fake_loss(
+            f_u, f_other, multiplier=fake_mult,
+            order=settings.fake_loss_order,
+            distance_function=settings.contrasting_distance_function)
+
+    def d_streams(d: nn.Module, labeled_x, unlabeled_x, fake):
+        """D on the three primal streams: one forward over the 3B batch
+        when the streams are of one size (per-example GroupNorm makes it
+        the same math), else three."""
+        if (settings.fuse_discriminator_streams
+                and labeled_x.shape[0] == unlabeled_x.shape[0]
+                == fake.shape[0]):
+            b = labeled_x.shape[0]
+            preds, feats = d(torch.cat([labeled_x, unlabeled_x, fake]))
+            return (_slice_predictions(preds, b), feats[:b],
+                    feats[b:2 * b], feats[2 * b:])
+        pred_l, f_l = d(labeled_x)
+        _, f_u = d(unlabeled_x)
+        _, f_f = d(fake)
+        return pred_l, f_l, f_u, f_f
+
+    def d_loss(state: SRGANTrainState, labeled_x, labels, unlabeled_x,
+               z: Tensor, alpha: Tensor):
+        with torch.no_grad():
+            fake = state.g(z)
+        pred_l, f_l, f_u, f_f = d_streams(state.d, labeled_x, unlabeled_x,
+                                          fake)
+        l_loss = labeled_loss_fn(pred_l, labels)
+        u_loss = losses.unlabeled_loss(f_l, f_u, multiplier=unl_mult,
+                                       order=settings.unlabeled_loss_order)
+        f_loss = contrast(f_u, f_f)
+        # Gradient penalty: the contrasting loss at the interpolates,
+        # differentiated w.r.t. the interpolated INPUTS with create_graph,
+        # so that the penalty itself differentiates w.r.t. D's params.
+        interp = losses.interpolate_inputs(alpha, unlabeled_x, fake)
+        interp.requires_grad_(True)
+        _, f_i = state.d(interp)
+        (interp_grads,) = torch.autograd.grad(
+            contrast(f_u.detach(), f_i), interp, create_graph=True)
+        gp = losses.gradient_penalty(interp_grads, multiplier=gp_mult)
+        total = l_loss + u_loss + f_loss + gp
+        metrics = {"d_labeled_loss": l_loss, "d_unlabeled_loss": u_loss,
+                   "d_fake_loss": f_loss, "d_gradient_penalty": gp,
+                   "d_total_loss": total}
+        return total, metrics
+
+    def g_loss(state: SRGANTrainState, unlabeled_x, z: Tensor) -> Tensor:
+        fake = state.g(z)
+        with torch.no_grad():  # stop-gradient target
+            _, f_u = state.d(unlabeled_x)
+        _, f_f = state.d(fake)
+        return losses.generator_loss(f_u, f_f,
+                                     order=settings.unlabeled_loss_order)
+
+    def step(state: SRGANTrainState, labeled_x: Tensor, labels,
+             unlabeled_x: Tensor, rng: Optional[torch.Generator] = None,
+             z_d: Optional[Tensor] = None, z_g: Optional[Tensor] = None,
+             alpha: Optional[Tensor] = None
+             ) -> Tuple[SRGANTrainState, Dict[str, Tensor]]:
+        batch = unlabeled_x.shape[0]
+        if z_d is None:
+            z_d = sample_z(rng, batch)
+        if alpha is None:
+            alpha = torch.rand((batch,), generator=rng, device=rng.device)
+        if z_g is None:
+            z_g = sample_z(rng, batch)
+
+        # ---- D update ----------------------------------------------------
+        d_params = state.d_opt.params
+        total, metrics = d_loss(state, labeled_x, labels, unlabeled_x,
+                                z_d, alpha)
+        d_grads = torch.autograd.grad(total, d_params)
+        del total
+        state.d_opt.step(d_grads)
+
+        # ---- G update (every `generator_training_step_period` steps) -----
+        if period == 1 or state.step % period == 0:
+            loss = g_loss(state, unlabeled_x, z_g)
+            g_grads = torch.autograd.grad(loss, state.g_opt.params)
+            state.g_opt.step(g_grads)
+            metrics["g_loss"] = loss.detach()
+        else:
+            metrics["g_loss"] = torch.zeros((), device=unlabeled_x.device)
+
+        # ---- DNN baseline update -----------------------------------------
+        if state.dnn is not None:
+            pred, _ = state.dnn(labeled_x)
+            loss = labeled_loss_fn(pred, labels)
+            dnn_grads = torch.autograd.grad(loss, state.dnn_opt.params)
+            state.dnn_opt.step(dnn_grads)
+            metrics["dnn_loss"] = loss.detach()
+
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
