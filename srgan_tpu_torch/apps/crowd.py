@@ -153,13 +153,14 @@ class CrowdExperiment(Experiment):
         # Init draws on the host, so a seed gives the same weights on
         # every device.
         rng = generator_for(settings.seed, "init")
-        d = JointCNN(w, dtype=dtype, rng=rng, **head_init)
+        impl = settings.norm_impl
+        d = JointCNN(w, dtype=dtype, norm_impl=impl, rng=rng, **head_init)
         g = CrowdDCGenerator(image_size=settings.image_patch_size,
                              base_width=w,
                              latent_dimension=settings.latent_dimension,
-                             dtype=dtype, rng=rng)
-        dnn = JointCNN(w, dtype=dtype, use_norm=settings.dnn_use_norm,
-                       rng=rng, **head_init)
+                             dtype=dtype, norm_impl=impl, rng=rng)
+        dnn = JointCNN(w, dtype=dtype, norm_impl=impl,
+                       use_norm=settings.dnn_use_norm, rng=rng, **head_init)
         transform = self._input_normalization_transform()
         if transform is not None:
             d, dnn = InputAffine(d, *transform), InputAffine(dnn, *transform)

@@ -12,7 +12,9 @@ Layout rules (``srgan_tpu_torch.models.dcgan``):
   flipped in H and W (flax does not flip the kernel of a transposed conv;
   ``conv_transpose2d`` does).
 * ``Dense_i`` kernel [in, out] → weight [out, in].
-* ``GroupNorm_i`` scale / bias → ``norms.i.scale`` / ``norms.i.bias``.
+* ``GroupNorm_i`` (``norm_impl="xla"``) or ``FusedGroupNormAct_i``
+  (``norm_impl="pallas"``) scale / bias → ``norms.i.scale`` /
+  ``norms.i.bias``; both norm modules of the port keep these keys.
 """
 
 from __future__ import annotations
@@ -46,10 +48,24 @@ def dense_weight(kernel) -> torch.Tensor:
     return _tensor(np.asarray(kernel).T)
 
 
+_NORM_NAMES = ("GroupNorm", "FusedGroupNormAct")
+
+
+def _has_norms(tree: Mapping) -> bool:
+    return any(f"{name}_0" in tree for name in _NORM_NAMES)
+
+
+def _norm_leaf(tree: Mapping, i: int) -> Mapping:
+    for name in _NORM_NAMES:
+        if f"{name}_{i}" in tree:
+            return tree[f"{name}_{i}"]
+    raise KeyError(f"no GroupNorm_{i} or FusedGroupNormAct_{i} in the tree")
+
+
 def _norms(tree: Mapping, count: int) -> StateDict:
     out = {}
     for i in range(count):
-        leaf = tree[f"GroupNorm_{i}"]
+        leaf = _norm_leaf(tree, i)
         out[f"norms.{i}.scale"] = _tensor(leaf["scale"])
         out[f"norms.{i}.bias"] = _tensor(leaf["bias"])
     return out
@@ -64,7 +80,7 @@ def joint_cnn_state_dict(params: Mapping) -> StateDict:
         leaf = tree[f"Conv_{i}"]
         out[f"convs.{i}.weight"] = conv_weight(leaf["kernel"])
         out[f"convs.{i}.bias"] = _tensor(leaf["bias"])
-    if "GroupNorm_0" in tree:
+    if _has_norms(tree):
         out.update(_norms(tree, 4))
     for head in ("density_head", "count_head"):
         out[f"{head}.weight"] = conv_weight(tree[head]["kernel"])

@@ -44,7 +44,6 @@ _UNPORTED = {
     "crowd_rescale_factors": (),
     "crowd_label_type": "density",
     "crowd_model": "jointcnn",
-    "norm_impl": "xla",
 }
 
 
@@ -58,6 +57,10 @@ def check_supported(settings: Settings) -> None:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported to PyTorch yet (see "
                 f"ROADMAP.md); the port runs {name}={off!r}")
+    if settings.norm_impl == "fast":
+        raise NotImplementedError(
+            "norm_impl='fast' (FastGroupNorm) is not ported to PyTorch; the "
+            "port runs norm_impl='xla' or 'pallas'")
     if settings.data_parallel_devices not in (None, 1):
         raise NotImplementedError(
             f"data_parallel_devices={settings.data_parallel_devices} is not "

@@ -13,11 +13,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from srgan_tpu_torch.models.dcgan import (Conv, DCGANGenerator, GroupNorm,
-                                          group_norm, norm_act)
+from srgan_tpu_torch.models.dcgan import (Conv, DCGANGenerator, group_norm,
+                                          norm_act)
 
 
-def _conv_stage(x: torch.Tensor, conv: Conv, norm: GroupNorm | None
+def _conv_stage(x: torch.Tensor, conv: Conv, norm: nn.Module | None
                 ) -> torch.Tensor:
     """One crowd-model stage: 3×3 conv [+ GroupNorm] + LeakyReLU(0.2)."""
     x = conv(x)
@@ -45,11 +45,13 @@ class JointCNN(nn.Module):
 
     ``zero_init_heads`` zero-initializes the head kernels and sets their
     biases to the given per-cell targets, so that the step-0 prediction
-    is the dataset-mean map and count.
+    is the dataset-mean map and count. ``norm_impl`` picks the norm layers
+    (``models.dcgan.group_norm``).
     """
 
     def __init__(self, base_width: int = 64, *,
-                 dtype: torch.dtype = torch.float32, use_norm: bool = True,
+                 dtype: torch.dtype = torch.float32, norm_impl: str = "xla",
+                 use_norm: bool = True,
                  zero_init_heads: bool = True,
                  density_head_bias: float = 0.0,
                  count_head_bias: float = 0.0, rng: torch.Generator):
@@ -61,7 +63,7 @@ class JointCNN(nn.Module):
             Conv(cin, cout, 3, stride, dtype=dtype, rng=rng)
             for cin, cout, stride in stages)
         self.norms = nn.ModuleList(
-            group_norm(cout, dtype) for _, cout, _ in stages
+            group_norm(cout, dtype, norm_impl) for _, cout, _ in stages
         ) if use_norm else None
         self.density_head = Conv(4 * w, 1, 1, dtype=dtype, rng=rng,
                                  zero_init=zero_init_heads,

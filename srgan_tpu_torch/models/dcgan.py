@@ -1,8 +1,8 @@
 """Layers with flax semantics, GroupNorm + activation, and the DCGAN
 generator.
 
-The port of ``srgan_tpu.models.dcgan`` (``norm_act`` with the default
-``impl="xla"``, and ``DCGANGenerator``). Tensors are NCHW, and the models
+The port of ``srgan_tpu.models.dcgan`` (``norm_act`` with ``impl="xla"``
+or ``"pallas"``, and ``DCGANGenerator``). Tensors are NCHW, and the models
 keep them in ``channels_last`` memory, which is the JAX package's NHWC
 layout in memory.
 
@@ -18,7 +18,9 @@ What differs from torch's own layers, and is matched here:
   with the statistics in float32 whatever the compute dtype.
 * The bf16 policy mirrors flax ``dtype=``: parameters stay float32; each
   conv and dense layer casts its input and its parameters to the compute
-  dtype; GroupNorm computes in float32 and returns the compute dtype.
+  dtype; GroupNorm computes in float32 and returns the compute dtype. The
+  ``"xla"`` path casts before its activation, the fused ``"pallas"`` path
+  after it, as in JAX.
 * Random init follows flax's defaults: LeCun-normal kernels (a normal
   truncated at ±2σ, σ = 1/√fan_in / 0.8796), zero biases, unit norm
   scales. It draws from an explicit ``torch.Generator`` (``rng``).
@@ -32,6 +34,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from srgan_tpu_torch.ops.fused_norm import FusedGroupNormAct
 
 # Standard deviation of a unit normal truncated to [-2, 2]: flax divides
 # by it so that the truncated draw keeps the requested variance.
@@ -156,19 +160,30 @@ class GroupNorm(nn.Module):
         return y.reshape(b, c, h, w).to(self.dtype)
 
 
-def group_norm(width: int, dtype: torch.dtype,
-               max_groups: int = 32) -> GroupNorm:
-    """The model-wide norm layer: ``min(max_groups, width)`` groups."""
+def group_norm(width: int, dtype: torch.dtype, impl: str = "xla",
+               max_groups: int = 32) -> nn.Module:
+    """The model-wide norm layer of ``Settings.norm_impl``, with
+    ``min(max_groups, width)`` groups: the composite :class:`GroupNorm`
+    for ``"xla"``, the fused kernels' :class:`FusedGroupNormAct` for
+    ``"pallas"``."""
+    if impl == "pallas":
+        return FusedGroupNormAct(width, min(max_groups, width))
+    if impl != "xla":
+        raise ValueError(f"unknown norm_impl {impl!r}; the port runs "
+                         f"'xla' or 'pallas'")
     return GroupNorm(width, min(max_groups, width), dtype=dtype)
 
 
-def norm_act(x: torch.Tensor, norm: GroupNorm,
+def norm_act(x: torch.Tensor, norm: nn.Module,
              negative_slope: float = 0.0) -> torch.Tensor:
     """GroupNorm + LeakyReLU(``negative_slope``); slope 0 is ReLU.
 
-    The JAX package's default ``impl="xla"``. Its fused Pallas kernel
-    (``impl="pallas"``) is not ported yet.
+    A :class:`FusedGroupNormAct` applies the activation in its kernel,
+    before the cast to the compute dtype; the composite :class:`GroupNorm`
+    casts first, and the activation follows.
     """
+    if isinstance(norm, FusedGroupNormAct):
+        return norm(x, negative_slope)
     x = norm(x)
     return (F.leaky_relu(x, negative_slope) if negative_slope
             else F.relu(x))
@@ -206,7 +221,7 @@ class DCGANGenerator(nn.Module):
 
     def __init__(self, image_size: int = 64, channels: int = 3,
                  base_width: int = 64, latent_dimension: int = 100, *,
-                 dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, norm_impl: str = "xla",
                  rng: torch.Generator):
         super().__init__()
         self.image_size = image_size
@@ -216,7 +231,8 @@ class DCGANGenerator(nn.Module):
         self.dense = Dense(latent_dimension,
                            self.start * self.start * self.width,
                            dtype=dtype, rng=rng)
-        self.norms = nn.ModuleList([group_norm(self.width, dtype)])
+        self.norms = nn.ModuleList([group_norm(self.width, dtype,
+                                               norm_impl)])
         self.deconvs = nn.ModuleList()
         width = self.width
         for i in range(num_ups):
@@ -225,7 +241,7 @@ class DCGANGenerator(nn.Module):
             self.deconvs.append(ConvTranspose(width, out_width, dtype=dtype,
                                               rng=rng))
             if i < num_ups - 1:
-                self.norms.append(group_norm(out_width, dtype))
+                self.norms.append(group_norm(out_width, dtype, norm_impl))
             width = out_width
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:

@@ -76,7 +76,9 @@ class Settings:
     # "float32" or "bfloat16": params stay float32, convs and dense layers
     # compute in this dtype, GroupNorm statistics stay float32.
     compute_dtype: str = "float32"
-    norm_impl: str = "xla"  # the port runs "xla" (a composite GroupNorm)
+    # "xla" (a composite GroupNorm) or "pallas" (the fused CUDA kernels of
+    # ops/fused_norm.py); "fast" is not ported.
+    norm_impl: str = "xla"
 
     # ------------------------------------------------------------ parallelism
     data_parallel_devices: Optional[int] = None

@@ -10,6 +10,7 @@ machine with the card:
 import pytest
 import torch
 
+from srgan_tpu_torch.ops import fused_norm as fn
 from srgan_tpu_torch.ops.patches import extract_patches, extract_patches_plain
 
 N, H, W, P, B = 3, 80, 96, 32, 6
@@ -71,3 +72,97 @@ def test_patch_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="dtype"):
         extract_patches(images.to(torch.int16), offsets, flips,
                         patch_size=P, indices=indices)
+
+
+# The fused norm kernels against their plain versions: small shapes of
+# 1 to 32 channels per group, float32 and bfloat16. The two sum in
+# different orders: float32 outputs within 1e-5 of the tensor's largest
+# magnitude (bfloat16: one bfloat16 ulp, 2⁻⁷, of it), mean and rstd at
+# rtol 1e-5, dscale and dbias within 1e-5 of their largest magnitude.
+NORM_CASES = [((3, 64, 64), 32, 0.2), ((2, 49, 1024), 32, 0.0),
+              ((4, 100, 8), 8, 0.2), ((2, 300, 384), 32, 0.0)]
+
+
+def _norm_inputs(shape, dtype):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev) + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn((c,), generator=gen, device=dev)
+    bias = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    return x, scale, bias, dy
+
+
+def _within(got, want, rel):
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= rel * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,slope", NORM_CASES)
+def test_fused_norm_kernels_equal_plain(shape, groups, slope, dtype):
+    x, scale, bias, dy = _norm_inputs(shape, dtype)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    before = (fn._launch_fwd.launches, fn._launch_bwd.launches)
+    y, mean, rstd = fn._launch_fwd(x, scale, bias, groups, slope, 1e-6)
+    dx, dscale, dbias = fn._launch_bwd(x, scale, bias, mean, rstd, dy,
+                                       groups, slope)
+    torch.cuda.synchronize()
+    assert (fn._launch_fwd.launches, fn._launch_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want_y, want_mean, want_rstd = fn.group_norm_act_fwd_plain(
+        x, scale, bias, groups, slope, 1e-6)
+    assert y.dtype == dtype and dx.dtype == dtype
+    _within(y, want_y, rel)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    want = fn.group_norm_act_bwd_plain(x, scale, bias, mean, rstd, dy,
+                                       groups, slope)
+    _within(dx, want[0], rel)
+    _within(dscale, want[1], 1e-5)
+    _within(dbias, want[2], 1e-5)
+
+
+def test_fused_norm_second_order_through_the_kernels():
+    """The gradient penalty's ∂/∂scale through the kernels (and the
+    composite second order) equals autograd through the plain forward,
+    float32, rtol 1e-3."""
+    b, c, h = 2, 64, 8
+    x, scale, bias, _ = _norm_inputs((b, h, h, c), torch.float32)
+    x = x.permute(0, 3, 1, 2)  # NCHW in channels_last memory
+
+    def penalty(act):
+        s = scale.clone().requires_grad_()
+        xi = x.clone().requires_grad_()
+        (g,) = torch.autograd.grad(act(xi, s).square().sum(), xi,
+                                   create_graph=True)
+        value = ((g.flatten(1).square().sum(1) + 1e-12).sqrt() - 1).square()
+        return torch.autograd.grad(value.mean(), s)[0]
+
+    def plain(xi, s):
+        rows = xi.permute(0, 2, 3, 1).reshape(b, h * h, c)
+        y, _, _ = fn.group_norm_act_fwd_plain(rows, s, bias, 32, 0.2, 1e-6)
+        return y.view(b, h, h, c).permute(0, 3, 1, 2)
+
+    before = fn._launch_bwd.launches
+    got = penalty(lambda xi, s: fn.group_norm_act(
+        xi, s, bias, groups=32, negative_slope=0.2))
+    assert fn._launch_bwd.launches >= before + 2
+    torch.testing.assert_close(got, penalty(plain), rtol=1e-3, atol=1e-6)
+
+
+def test_fused_norm_launchers_reject_what_the_kernels_do_not_take():
+    x, scale, bias, dy = _norm_inputs((2, 16, 64), torch.float32)
+    with pytest.raises(TypeError, match="dtype"):
+        fn._launch_fwd(x.half(), scale, bias, 32, 0.2, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn._launch_fwd(x[:, ::2], scale, bias, 32, 0.2, 1e-6)
+    with pytest.raises(ValueError, match="scale"):
+        fn._launch_fwd(x, scale.double(), bias, 32, 0.2, 1e-6)
+    _, mean, rstd = fn._launch_fwd(x, scale, bias, 32, 0.2, 1e-6)
+    with pytest.raises(ValueError, match="dy"):
+        fn._launch_bwd(x, scale, bias, mean, rstd, dy.mT.contiguous().mT,
+                       32, 0.2)
+    with pytest.raises(ValueError, match="groups"):
+        fn._launch_fwd(x, scale, bias, 48, 0.2, 1e-6)

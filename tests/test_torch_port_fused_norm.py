@@ -1,0 +1,250 @@
+"""The port's fused GroupNorm + activation against ``srgan_tpu.ops.fused_norm``.
+
+The same NumPy inputs go through the JAX functions (the Pallas kernels in
+interpret mode on the CPU, as ``tests/test_fused_norm.py`` runs them) and
+through the port, whose autograd Functions take the plain versions on CPU
+tensors. float32 unless stated. Tolerances, each from the JAX package's
+own test of the same quantity where it has one:
+
+* plain vs ``_reference_fwd`` / ``_reference_bwd``: rtol 2e-5, with an
+  absolute term of 2e-5 × the tensor's largest magnitude for elements
+  near zero (sums in another order);
+* forward and first-order gradients through the Functions: rtol 5e-4,
+  atol 1e-5;
+* the gradient penalty's second order: value rtol 1e-4, gradient rtol
+  1e-3, atol 1e-6;
+* a bfloat16 forward against the float32 plain version: 0.05.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from srgan_tpu.models.crowd import CrowdDCGenerator as JaxGenerator
+from srgan_tpu.models.crowd import JointCNN as JaxJointCNN
+from srgan_tpu.ops import fused_norm as jfn
+from srgan_tpu_torch import convert
+from srgan_tpu_torch.models.crowd import CrowdDCGenerator, JointCNN
+from srgan_tpu_torch.ops import fused_norm as fn
+from srgan_tpu_torch.utils.seeding import generator_for
+
+# Shape families of tests/test_fused_norm.py, and G's first stage
+# (1024 channels in 32 groups: 32 channels per group).
+SHAPES = [
+    ((2, 8, 8, 64), 32, 0.2),
+    ((3, 4, 4, 128), 32, 0.2),
+    ((2, 16, 256), 32, 0.0),
+    ((2, 8, 8, 8), 4, 0.2),
+    ((2, 7, 7, 1024), 32, 0.0),
+]
+
+
+def _inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    x = rng.normal(0, 1, shape).astype(np.float32)
+    scale = (1 + 0.1 * rng.normal(0, 1, c)).astype(np.float32)
+    bias = (0.1 * rng.normal(0, 1, c)).astype(np.float32)
+    return x, scale, bias
+
+
+def _nchw(x: np.ndarray) -> torch.Tensor:
+    """NHWC (or [B, L, C]) NumPy → NCHW torch in channels_last memory."""
+    if x.ndim == 3:
+        x = x[:, :, None, :]
+    return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _nhwc(t: torch.Tensor, shape) -> np.ndarray:
+    return t.detach().permute(0, 2, 3, 1).reshape(shape).float().numpy()
+
+
+def _close(got, want, rtol):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=rtol,
+                               atol=rtol * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("shape,groups,slope", SHAPES)
+def test_plain_versions_match_the_jax_references(shape, groups, slope):
+    x, scale, bias = _inputs(shape, 0)
+    b, c = shape[0], shape[-1]
+    x3 = x.reshape(b, -1, c)
+    dy = np.random.default_rng(1).normal(0, 1, x3.shape).astype(np.float32)
+    j_y, j_mean, j_rstd = jfn._reference_fwd(
+        jnp.asarray(x3), jnp.asarray(scale), jnp.asarray(bias), groups,
+        slope, 1e-6)
+    t = torch.from_numpy
+    y, mean, rstd = fn.group_norm_act_fwd_plain(t(x3), t(scale), t(bias),
+                                                groups, slope, 1e-6)
+    for got, want in ((y, j_y), (mean, j_mean), (rstd, j_rstd)):
+        _close(got.numpy(), want, 2e-5)
+    j_grads = jfn._reference_bwd(jnp.asarray(x3), jnp.asarray(scale),
+                                 jnp.asarray(bias), j_mean, j_rstd,
+                                 jnp.asarray(dy), groups, slope)
+    grads = fn.group_norm_act_bwd_plain(
+        t(x3), t(scale), t(bias), t(np.array(j_mean)),
+        t(np.array(j_rstd)), t(dy), groups, slope)
+    for got, want in zip(grads, j_grads):
+        _close(got.numpy(), want, 2e-5)
+
+
+@pytest.mark.parametrize("shape,slope", [((2, 6, 6, 64), 0.2),
+                                         ((2, 4, 4, 128), 0.0)])
+def test_forward_and_first_order_grads_match_jax(shape, slope):
+    x, scale, bias = _inputs(shape, 2)
+
+    def j_loss(x, s, b):
+        return jnp.sum(jnp.sin(jfn.group_norm_act(x, s, b, groups=32,
+                                                  negative_slope=slope)))
+
+    j_y = jfn.group_norm_act(jnp.asarray(x), jnp.asarray(scale),
+                             jnp.asarray(bias), groups=32,
+                             negative_slope=slope)
+    j_grads = jax.grad(j_loss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias))
+
+    tx = _nchw(x).requires_grad_()
+    ts = torch.from_numpy(scale).requires_grad_()
+    tb = torch.from_numpy(bias).requires_grad_()
+    y = fn.group_norm_act(tx, ts, tb, groups=32, negative_slope=slope)
+    grads = torch.autograd.grad(y.sin().sum(), (tx, ts, tb))
+    np.testing.assert_allclose(_nhwc(y, shape), np.asarray(j_y), rtol=5e-4,
+                               atol=1e-5)
+    got = (_nhwc(grads[0], shape), grads[1].numpy(), grads[2].numpy())
+    for g, w in zip(got, j_grads):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=5e-4, atol=1e-5)
+
+
+def test_gradient_penalty_second_order_matches_jax():
+    """∂/∂scale of mean((‖∂/∂x Σ y²‖ − 1)²), the derivative the gradient
+    penalty takes (tests/test_fused_norm.py)."""
+    shape = (2, 4, 4, 64)
+    x, scale, bias = _inputs(shape, 3)
+
+    def j_gp(s):
+        def inner(xi):
+            return jnp.sum(jfn.group_norm_act(xi, s, jnp.asarray(bias),
+                                              groups=32,
+                                              negative_slope=0.2) ** 2)
+        g = jax.grad(inner)(jnp.asarray(x))
+        norms = jnp.sqrt(jnp.sum(g.reshape(g.shape[0], -1) ** 2, axis=1)
+                         + 1e-12)
+        return jnp.mean((norms - 1.0) ** 2)
+
+    want_v, want_g = jax.value_and_grad(j_gp)(jnp.asarray(scale))
+
+    ts = torch.from_numpy(scale).requires_grad_()
+    tx = _nchw(x).requires_grad_()
+    y = fn.group_norm_act(tx, ts, torch.from_numpy(bias), groups=32,
+                          negative_slope=0.2)
+    (g,) = torch.autograd.grad(y.square().sum(), tx, create_graph=True)
+    norms = (g.flatten(1).square().sum(1) + 1e-12).sqrt()
+    gp = (norms - 1.0).square().mean()
+    (got_g,) = torch.autograd.grad(gp, ts)
+    np.testing.assert_allclose(float(gp.detach()), float(want_v), rtol=1e-4)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), rtol=1e-3,
+                               atol=1e-6)
+
+
+def test_bf16_forward_close_to_f32_plain():
+    shape = (2, 8, 8, 64)
+    x, scale, bias = _inputs(shape, 4)
+    t = torch.from_numpy
+    got = fn.group_norm_act(_nchw(x).to(torch.bfloat16), t(scale), t(bias),
+                            groups=32, negative_slope=0.2)
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    want, _, _ = fn.group_norm_act_fwd_plain(t(x.reshape(2, 64, 64)),
+                                             t(scale), t(bias), 32, 0.2,
+                                             1e-6)
+    np.testing.assert_allclose(_nhwc(got, shape), want.numpy().reshape(shape),
+                               rtol=0.05, atol=0.05)
+
+
+@pytest.mark.parametrize("width,groups", [(8, 8), (16, 16), (48, 24),
+                                          (64, 32), (1024, 32)])
+def test_group_count_follows_jax(width, groups):
+    module = fn.FusedGroupNormAct(width, min(32, width))
+    assert module.num_groups == groups
+    shape = (2, 2, 2, width)
+    x, scale, bias = _inputs(shape, 5)
+    jmod = jfn.FusedGroupNormAct(num_groups=min(32, width))
+    want = jmod.apply({"params": {"scale": scale, "bias": bias}},
+                      jnp.asarray(x))
+    module.load_state_dict({"scale": torch.from_numpy(scale),
+                            "bias": torch.from_numpy(bias)})
+    np.testing.assert_allclose(_nhwc(module(_nchw(x)), shape),
+                               np.asarray(want), rtol=2e-5, atol=2e-5)
+
+
+def test_models_with_fused_norm_match_flax():
+    """JointCNN and the generator with norm_impl="pallas" on converted
+    weights: the flax trees name their norms FusedGroupNormAct_i."""
+    p, width, latent, b = 32, 8, 16, 3
+    rng = np.random.default_rng(6)
+    x = rng.uniform(-1, 1, (b, p, p, 3)).astype(np.float32)
+    z = rng.normal(0, 1, (b, latent)).astype(np.float32)
+    jd = JaxJointCNN(base_width=width, norm_impl="pallas",
+                     zero_init_heads=False)
+    jg = JaxGenerator(image_size=p, base_width=width,
+                      latent_dimension=latent, norm_impl="pallas")
+    d_params = jd.init(jax.random.key(1), jnp.zeros((1, p, p, 3)))
+    g_params = jg.init(jax.random.key(2), jnp.zeros((1, latent)))
+    assert "FusedGroupNormAct_0" in d_params["params"]
+    (j_density, _), j_feats = jd.apply(d_params, jnp.asarray(x))
+    j_fake = jg.apply(g_params, jnp.asarray(z))
+
+    d = JointCNN(width, norm_impl="pallas", zero_init_heads=False,
+                 rng=generator_for(0, "t"))
+    g = CrowdDCGenerator(image_size=p, base_width=width,
+                         latent_dimension=latent, norm_impl="pallas",
+                         rng=generator_for(0, "t"))
+    d.load_state_dict(convert.joint_cnn_state_dict(jax.device_get(d_params)))
+    g.load_state_dict(convert.generator_state_dict(jax.device_get(g_params)))
+    assert all(isinstance(m, fn.FusedGroupNormAct) for m in d.norms)
+    (density, _), feats = d(_nchw(x))
+    fake = g(torch.from_numpy(z))
+    _close(density.detach().numpy(), j_density, 1e-4)
+    _close(feats.detach().numpy(), j_feats, 1e-4)
+    _close(_nhwc(fake, fake.permute(0, 2, 3, 1).shape), j_fake, 1e-4)
+
+
+def test_no_fallback_off_the_cpu():
+    """Off the CPU the Functions launch the kernels or raise: a tensor on
+    another device reaches the launcher, which refuses it; CPU calls run
+    the plain versions and launch nothing."""
+    fwd, bwd = fn._launch_fwd.launches, fn._launch_bwd.launches
+    x = torch.randn(2, 8, 4, 4, requires_grad=True)
+    ones, zeros = torch.ones(8), torch.zeros(8)
+    fn.group_norm_act(x, ones, zeros, groups=4).sum().backward()
+    assert (fn._launch_fwd.launches, fn._launch_bwd.launches) == (fwd, bwd)
+    meta = torch.empty(2, 8, 4, 4, device="meta").contiguous(
+        memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn.group_norm_act(meta, ones.to("meta"), zeros.to("meta"), groups=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn._launch_bwd(torch.zeros(2, 16, 8), ones, zeros,
+                       torch.zeros(2, 4), torch.ones(2, 4),
+                       torch.zeros(2, 16, 8), 4, 0.2)
+    with pytest.raises(ValueError, match="divisible"):
+        fn.group_norm_act(x, ones, zeros, groups=3)
+
+
+def test_norm_impl_setting():
+    """The port runs "xla" and "pallas"; JAX's A/B-only "fast" raises."""
+    from srgan_tpu_torch import Settings
+    from srgan_tpu_torch.experiment import check_supported
+    from srgan_tpu_torch.models.dcgan import GroupNorm, group_norm
+    for impl in ("xla", "pallas"):
+        check_supported(Settings(norm_impl=impl))
+    with pytest.raises(NotImplementedError, match="fast"):
+        check_supported(Settings(norm_impl="fast"))
+    assert isinstance(group_norm(64, torch.float32, "xla"), GroupNorm)
+    assert isinstance(group_norm(64, torch.float32, "pallas"),
+                      fn.FusedGroupNormAct)
+    with pytest.raises(ValueError, match="norm_impl"):
+        group_norm(64, torch.float32, "fast")

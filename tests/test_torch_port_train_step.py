@@ -6,7 +6,10 @@ JAX's z_d, z_g and α are reproduced from the step's key exactly as
 ``make_gan_train_step`` splits it, and fed to the port's step. Compared:
 every metric, the D/G/DNN gradients (recovered on the JAX side from Adam's
 first moment, which after one step is (1 − b1)·g), Adam's moments, and
-the parameters after the step. float32 on the CPU.
+the parameters after the step. float32 on the CPU. Both norm paths run:
+``norm_impl="xla"`` (flax GroupNorm; the port's composite) and
+``"pallas"`` (JAX's Pallas kernels in interpret mode; the port's fused
+autograd Functions on their plain versions).
 
 Tolerances (the two sides sum in different orders: convolutions,
 GroupNorm statistics, the double backward; f32 rounding differs by up to
@@ -76,10 +79,11 @@ def _batch(db_l, db_u, rng):
     return x, y, u
 
 
-@pytest.fixture(scope="module")
-def both_steps():
+@pytest.fixture(scope="module", params=["xla", "pallas"])
+def both_steps(request):
+    settings = dict(SETTINGS, norm_impl=request.param)
     # ---- JAX: the step as the crowd app builds it ------------------------
-    jexp = JaxCrowdExperiment(JaxSettings(**SETTINGS))
+    jexp = JaxCrowdExperiment(JaxSettings(**settings))
     jexp.dataset_setup()
     models, d_params, g_params, dnn_params = jexp.model_setup()
     j_state = jax_init_train_state(jexp.settings, d_params, g_params,
@@ -99,7 +103,7 @@ def both_steps():
     alpha = jax.random.uniform(k_alpha, (B,), dtype=jnp.float32)
 
     # ---- the port, on the converted flax weights -------------------------
-    exp = CrowdExperiment(Settings(**SETTINGS), device="cpu")
+    exp = CrowdExperiment(Settings(**settings), device="cpu")
     exp.dataset_setup()
     bundle = exp.model_setup()
     host = jax.device_get
