@@ -3,31 +3,41 @@ database.
 
 The port of ``srgan_tpu.apps.crowd.CrowdExperiment`` on its resident
 single-device path. The whole training split lives on the device (images
-as uint8); every step draws random (index, offset, flip) triples on the
-host, with the same NumPy stream as the JAX package, and the patch kernel
-(``srgan_tpu_torch/ops/patches.py``) cuts the normalized image and
-density patches on the device. Image and density patches share offsets
-and flips, so augmentation stays label-consistent.
+as uint8); every step draws random (index, offset, flip[, scale]) draws on
+the host, with the same NumPy stream as the JAX package, and the patch
+kernels (``srgan_tpu_torch/ops/patches.py``) cut the normalized image and
+density patches on the device: fixed P×P windows, or with
+``crowd_rescale_factors`` windows of ``round(P · factor)`` resized to P×P.
+Image and density patches share windows and flips, so augmentation stays
+label-consistent.
 
-Not ported yet: grid evaluation and validation, the host and window
-tiers, dataset sharding, the rescale sampler, kNN/iKNN targets and the
-deeper crowd models.
+Evaluation cuts every validation image into a 50%-overlap grid of patches
+(the patch kernel), runs D or the DNN on them, and reassembles the
+overlap-averaged density canvas, whose sum is the image's count.
+Validation writes MAE/RMSE/NVE/NAE for both models, G samples and
+(input | truth | prediction) density triptychs.
+
+Not ported yet: the host and window tiers, dataset sharding, kNN/iKNN
+targets, the deeper crowd models and the density-map export.
 """
 
 from __future__ import annotations
 
 import functools
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from srgan_tpu_torch import metrics
+from srgan_tpu_torch.apps.common import write_generated_sample_grid
 from srgan_tpu_torch.data.crowd import CrowdDatabase, synthetic_crowd_database
 from srgan_tpu_torch.experiment import Experiment
 from srgan_tpu_torch.models.crowd import CrowdDCGenerator, JointCNN
-from srgan_tpu_torch.ops.patches import extract_patches
+from srgan_tpu_torch.ops.patches import (extract_patches,
+                                         extract_rescaled_patches)
 from srgan_tpu_torch.train import ModelBundle
 from srgan_tpu_torch.utils.seeding import generator_for
 
@@ -68,6 +78,8 @@ class CrowdExperiment(Experiment):
         self._device_data = None
         self._labeled_index_bound = 0
         self._unlabeled_index_bound = 0
+        # Grid evaluators by _grid_fn_key, built at first use.
+        self._grid_count_fns: Dict[tuple, object] = {}
 
     # ------------------------------------------------------------ datasets
     def _load_databases(self) -> Tuple[CrowdDatabase, CrowdDatabase,
@@ -107,6 +119,8 @@ class CrowdExperiment(Experiment):
          self.test_db) = self._load_databases()
         self.labeled_dataset = self.labeled_db
         self.unlabeled_dataset = self.unlabeled_db
+        # test() dispatches on this; evaluate() takes CrowdDatabases.
+        self.test_dataset = self.test_db
 
     @property
     def _label_dtype(self) -> torch.dtype:
@@ -119,13 +133,16 @@ class CrowdExperiment(Experiment):
         return getattr(torch, name)
 
     def _upload_databases(self) -> None:
-        """Place the training splits on the device once: images as uint8
-        (raw 0..255), density labels [N, H, W, 1] in ``_label_dtype``."""
+        """Place the splits on the device once: images as uint8 (raw
+        0..255), density labels [N, H, W, 1] in ``_label_dtype``, and the
+        validation images for grid evaluation."""
         device = self.device
         self._labeled_index_bound = len(self.labeled_db)
         self._unlabeled_index_bound = len(self.unlabeled_db)
         labels = torch.from_numpy(self.labeled_db.density_maps[..., None])
         self._device_data = {
+            "validation_images": torch.from_numpy(
+                self.validation_db.images).to(device),
             "labeled_images": torch.from_numpy(
                 self.labeled_db.images).to(device),
             "labeled_density": labels.to(device).to(self._label_dtype),
@@ -206,9 +223,34 @@ class CrowdExperiment(Experiment):
         return loss_fn
 
     # ------------------------------------------------------ batch pipeline
+    @property
+    def _rescale_windows(self) -> Tuple[int, ...]:
+        """Source-window sides of the random rescale (empty: off)."""
+        p = self.settings.image_patch_size
+        return tuple(int(round(p * f))
+                     for f in self.settings.crowd_rescale_factors)
+
     def prepare_train_step(self) -> None:
         super().prepare_train_step()
         self._upload_databases()
+        p = self.settings.image_patch_size
+        windows = self._rescale_windows
+        # (kNN/iKNN labels and the host tier, which the JAX package also
+        # refuses here, are refused earlier: dataset_setup, check_supported.)
+        if windows:
+            if min(windows) < 1:
+                raise ValueError(
+                    f"crowd_rescale_factors produce degenerate windows "
+                    f"{windows} at patch size {p}")
+            limit = min(min(self.labeled_db.image_size),
+                        min(self.unlabeled_db.image_size))
+            if max(windows) > limit:
+                raise ValueError(
+                    f"largest rescale window {max(windows)} "
+                    f"(patch {p} x factor "
+                    f"{max(self.settings.crowd_rescale_factors)}) "
+                    f"exceeds the smallest image dimension {limit}; "
+                    f"reduce the factors or use larger images")
 
     def _to_device(self, *arrays: np.ndarray):
         """One host→device copy for all of a step's small int32 arrays,
@@ -221,41 +263,63 @@ class CrowdExperiment(Experiment):
         return [t.view(a.shape) for t, a in zip(parts, arrays)]
 
     def _sample_batch(self, labeled_images, labeled_density,
-                      unlabeled_images, idx, offs, flips, uidx, uoffs,
-                      uflips):
+                      unlabeled_images, idx, offs, flips, sidx, uidx, uoffs,
+                      uflips, usidx):
         """Three patch-kernel calls: labeled images and their density
-        labels (same windows), and unlabeled images. Returns NCHW image
-        patches (channels_last memory) and [B, P, P] labels."""
+        labels (same windows; with rescale, mass-preserving), and
+        unlabeled images. Returns NCHW image patches (channels_last
+        memory) and [B, P, P] labels."""
         p = self.settings.image_patch_size
-        idx, offs, flips, uidx, uoffs, uflips = self._to_device(
-            idx, offs, flips, uidx, uoffs, uflips)
-        patches = extract_patches(
-            labeled_images, offs, flips, patch_size=p,
-            scale=2.0 / 255.0, shift=-1.0, indices=idx)
-        labels = extract_patches(
-            labeled_density, offs, flips, patch_size=p, indices=idx)
-        upatches = extract_patches(
-            unlabeled_images, uoffs, uflips, patch_size=p,
-            scale=2.0 / 255.0, shift=-1.0, indices=uidx)
+        windows = self._rescale_windows
+        idx, offs, flips, sidx, uidx, uoffs, uflips, usidx = self._to_device(
+            idx, offs, flips, sidx, uidx, uoffs, uflips, usidx)
+        image = dict(patch_size=p, scale=2.0 / 255.0, shift=-1.0)
+        if windows:
+            patches = extract_rescaled_patches(
+                labeled_images, offs, flips, sidx, window_sizes=windows,
+                indices=idx, **image)
+            # The density mass of the source window survives the resize
+            # (count targets integrate the patch).
+            labels = extract_rescaled_patches(
+                labeled_density, offs, flips, sidx, patch_size=p,
+                window_sizes=windows, preserve_mass=True, indices=idx)
+            upatches = extract_rescaled_patches(
+                unlabeled_images, uoffs, uflips, usidx, window_sizes=windows,
+                indices=uidx, **image)
+        else:
+            patches = extract_patches(labeled_images, offs, flips,
+                                      indices=idx, **image)
+            labels = extract_patches(labeled_density, offs, flips,
+                                     patch_size=p, indices=idx)
+            upatches = extract_patches(unlabeled_images, uoffs, uflips,
+                                       indices=uidx, **image)
         return (patches.permute(0, 3, 1, 2), labels[..., 0],
                 upatches.permute(0, 3, 1, 2))
 
     def _random_patch_args(self, rng: np.random.Generator, n_images: int,
                            image_hw: Tuple[int, int], batch: int):
-        """Sample ``(index, offset, flip)`` per example: the draws of the
-        JAX package's sampler with rescaling off."""
+        """Sample ``(index, offset, flip, scale_idx)`` per example, with
+        the JAX package's draws: the scale index only when the rescale is
+        on, and offsets that keep each example's own window inside its
+        image."""
         h, w = image_hw
-        p = self.settings.image_patch_size
+        windows = self._rescale_windows
         idx = rng.integers(0, n_images, batch).astype(np.int32)
-        offs = np.stack([rng.integers(0, h - p + 1, batch),
-                         rng.integers(0, w - p + 1, batch)],
+        if windows:
+            sidx = rng.integers(0, len(windows), batch).astype(np.int32)
+            win = np.asarray(windows, np.int64)[sidx]
+        else:
+            sidx = np.zeros(batch, np.int32)
+            win = self.settings.image_patch_size
+        offs = np.stack([rng.integers(0, h - win + 1, batch),
+                         rng.integers(0, w - win + 1, batch)],
                         axis=-1).astype(np.int32)
         flips = rng.integers(0, 2, batch).astype(np.int32)
-        return idx, offs, flips
+        return idx, offs, flips, sidx
 
     def _patch_args_stream(self):
         """Endless per-step host draws: labeled then unlabeled
-        ``(idx, offs, flips)`` for each step."""
+        ``(idx, offs, flips, sidx)`` for each step."""
         settings = self.settings
         rng = np.random.default_rng([settings.seed, 1, self._start_step])
         batch = settings.batch_size
@@ -279,3 +343,230 @@ class CrowdExperiment(Experiment):
 
         while True:
             yield one_epoch()
+
+    # ----------------------------------------------------------- evaluation
+    def _grid_offsets(self, image_hw: Tuple[int, int]) -> np.ndarray:
+        """Deterministic patch grid with 50% overlap covering the image."""
+        h, w = image_hw
+        p = self.settings.image_patch_size
+        if min(h, w) < p:
+            raise ValueError(
+                f"evaluation images ({h}x{w}) are smaller than "
+                f"image_patch_size={p}; grid evaluation cannot cover "
+                f"them — lower --image_patch_size to <= {min(h, w)} or "
+                f"preprocess the database at >= patch resolution")
+        stride = max(1, p // 2)
+        ys = list(range(0, max(h - p, 0) + 1, stride))
+        xs = list(range(0, max(w - p, 0) + 1, stride))
+        if ys[-1] != h - p:
+            ys.append(h - p)
+        if xs[-1] != w - p:
+            xs.append(w - p)
+        return np.array([(y, x) for y in ys for x in xs], np.int32)
+
+    # Images evaluated per device call.
+    EVAL_CHUNK_IMAGES = 8
+
+    def _grid_counts_fn(self, image_hw: Tuple[int, int], use_dnn: bool,
+                        return_maps: bool = False):
+        """Build (cached) the grid evaluator for one image size:
+        ``(model, images, ids[k], masks[k]) → counts[k]``, or the
+        overlap-averaged density canvases ``[k, H/4, W/4]`` with
+        ``return_maps``. One patch-kernel call cuts the k·g grid patches;
+        the model runs under ``torch.inference_mode``; the g maps add into
+        the canvas in grid order, then ``canvas · inv_weight · mask``, the
+        order of JAX's ``fori_loop``."""
+        key = self._grid_fn_key(image_hw, use_dnn, return_maps)
+        if key in self._grid_count_fns:
+            return self._grid_count_fns[key]
+        p = self.settings.image_patch_size
+        f = DENSITY_DOWNSAMPLE
+        h, w = image_hw
+        pf = p // f
+        offsets = self._grid_offsets((h, w))
+        g = len(offsets)
+        # The overlap weights do not depend on the data: their reciprocal
+        # is made once on the host.
+        weight = np.zeros((h // f, w // f), np.float32)
+        for oy, ox in offsets:
+            weight[oy // f:oy // f + pf, ox // f:ox // f + pf] += 1.0
+        inv_weight = torch.from_numpy(1.0 / np.maximum(weight, 1.0)).to(
+            self.device)
+        cells = [(int(oy) // f, int(ox) // f) for oy, ox in offsets]
+        offsets_full = torch.from_numpy(offsets).to(self.device)
+
+        def counts_fn(model, images, ids, masks):
+            k = ids.shape[0]
+            idx = ids.repeat_interleave(g)
+            offs = offsets_full.repeat(k, 1)
+            patches = extract_patches(
+                images, offs, torch.zeros_like(idx), patch_size=p,
+                scale=2.0 / 255.0, shift=-1.0, indices=idx)
+            with torch.inference_mode():
+                maps = model(patches.permute(0, 3, 1, 2))[0][0].float()
+                maps = maps.reshape(k, g, pf, pf)
+                canvas = torch.zeros((k, h // f, w // f),
+                                     dtype=torch.float32, device=self.device)
+                for j, (cy, cx) in enumerate(cells):
+                    canvas[:, cy:cy + pf, cx:cx + pf] += maps[:, j]
+                weighted = canvas * inv_weight * masks
+                return weighted if return_maps else weighted.sum(dim=(1, 2))
+
+        self._grid_count_fns[key] = counts_fn
+        return counts_fn
+
+    def predict_density_maps(self, use_dnn: Optional[bool] = None,
+                             db: Optional[CrowdDatabase] = None,
+                             limit: Optional[int] = None) -> np.ndarray:
+        """Predicted density maps ``[N, H/4, W/4]`` of a split (default:
+        validation): the overlap-averaged grid canvases that the counts
+        integrate, ROI masks applied. ``limit`` evaluates only the first
+        N examples."""
+        return self._predict_grid(use_dnn, db, return_maps=True,
+                                  limit=limit)
+
+    def predict_image_counts(self, use_dnn: Optional[bool] = None,
+                             db: Optional[CrowdDatabase] = None
+                             ) -> np.ndarray:
+        """Per-example full-image counts of a split (default: validation).
+
+        When the maps evaluator of the same shapes (image size and ROI
+        presence) is already built, the counts are the host sums of its
+        canvases, as in the JAX package, which saves a compile there."""
+        ref = self.validation_db
+        target = db if db is not None else ref
+        key = self._grid_fn_key(target.image_size,
+                                self._resolve_use_dnn(use_dnn), True)
+        same_shapes = (target.image_size == ref.image_size and
+                       (target.roi_masks is None) ==
+                       (ref.roi_masks is None))
+        if same_shapes and key in self._grid_count_fns:
+            return self._predict_grid(use_dnn, db,
+                                      return_maps=True).sum(axis=(1, 2))
+        return self._predict_grid(use_dnn, db, return_maps=False)
+
+    @staticmethod
+    def _grid_fn_key(image_hw, use_dnn, return_maps):
+        """The one source of the grid evaluators' cache key."""
+        return (tuple(image_hw), bool(use_dnn), bool(return_maps))
+
+    def _predict_grid(self, use_dnn: Optional[bool],
+                      db: Optional[CrowdDatabase], return_maps: bool,
+                      limit: Optional[int] = None) -> np.ndarray:
+        use_dnn = self._resolve_use_dnn(use_dnn)
+        use_cached_images = db is None or db is self.validation_db
+        db = db if db is not None else self.validation_db
+        model = self.state.dnn if use_dnn else self.state.d
+        counts_fn = self._grid_counts_fn(db.image_size, use_dnn,
+                                         return_maps=return_maps)
+        if use_cached_images:
+            images = self._device_data["validation_images"]
+        else:  # one-shot evaluation of another split: upload it now
+            images = torch.from_numpy(db.images).to(self.device)
+        # ROI masks: fractional f×f coverage at density resolution;
+        # without ROI a broadcastable [N, 1, 1] of ones.
+        h, w = db.image_size
+        f = DENSITY_DOWNSAMPLE
+        n = len(db) if limit is None else min(limit, len(db))
+        if db.roi_masks is not None:
+            mask_ds = db.roi_masks[:n].reshape(
+                n, h // f, f, w // f, f).mean(axis=(2, 4)
+                                              ).astype(np.float32)
+        else:
+            mask_ds = np.ones((n, 1, 1), np.float32)
+        out_shape = (n, h // f, w // f) if return_maps else (n,)
+        counts = np.zeros(out_shape, np.float32)
+        # A fixed chunk: the tail repeats the last id, and the repeats'
+        # outputs are dropped.
+        chunk = self.EVAL_CHUNK_IMAGES
+        for start in range(0, n, chunk):
+            image_ids = np.arange(start, min(start + chunk, n))
+            k = len(image_ids)
+            if k < chunk:
+                image_ids = np.concatenate(
+                    [image_ids, np.full(chunk - k, image_ids[-1], np.int64)])
+            ids = torch.from_numpy(image_ids.astype(np.int32)).to(
+                self.device)
+            masks = torch.from_numpy(mask_ds[image_ids]).to(self.device)
+            got = counts_fn(model, images, ids, masks).cpu().numpy()
+            counts[start:start + k] = got[:k]
+        return counts
+
+    @staticmethod
+    def _count_metrics(db: CrowdDatabase,
+                       per_example_pred: np.ndarray) -> Dict[str, float]:
+        """Per-source-image count metrics: a tiled database sums its
+        tiles' counts by ``image_ids`` first. The truth follows the
+        predictions' ROI convention (``CrowdDatabase.roi_head_counts``)."""
+        pred = db.per_image_counts(per_example_pred)
+        true_counts = db.per_image_counts(db.roi_head_counts())
+        return {"MAE": float(metrics.mae(pred, true_counts)),
+                "RMSE": float(metrics.rmse(pred, true_counts)),
+                "NVE": float(metrics.nve(pred, true_counts)),
+                "NAE": float(metrics.count_nae(pred, true_counts))}
+
+    def validation_summaries(self, epoch: int, step: int) -> None:
+        """G samples; per model, the validation metrics and, with
+        ``crowd_summary_image_count`` > 0, density triptychs from the
+        same canvases."""
+        write_generated_sample_grid(self, epoch, step)
+        if len(self.validation_db) == 0:
+            return  # G samples only: no NaN metrics over an empty split
+        for use_dnn, writer in ((False, self.gan_summary_writer),
+                                (True, self.dnn_summary_writer)):
+            if not use_dnn and self.settings.dnn_only:
+                continue  # the discriminator is untrained init noise
+            if self.settings.crowd_summary_image_count > 0:
+                maps = self.predict_density_maps(use_dnn=use_dnn)
+                pred = maps.sum(axis=(1, 2))
+            else:
+                maps = None
+                pred = self.predict_image_counts(use_dnn=use_dnn)
+            for name, value in self._count_metrics(self.validation_db,
+                                                   pred).items():
+                writer.add_scalar(f"validation/{name}", value, step)
+            if maps is not None:
+                self._write_density_triptychs(writer, step, maps)
+
+    @staticmethod
+    def _heat(v: np.ndarray) -> np.ndarray:
+        """'Hot'-ramp colormap for a [0, 1] map → [H, W, 3] (black → red
+        → yellow → white)."""
+        return np.clip(np.stack([3 * v, 3 * v - 1, 3 * v - 2], axis=-1),
+                       0.0, 1.0)
+
+    def _write_density_triptychs(self, writer, step: int,
+                                 maps: np.ndarray) -> None:
+        """(input | true density | predicted density) images of the first
+        ``crowd_summary_image_count`` validation images; the two density
+        panels share one intensity scale. ``maps``: the split's predicted
+        canvases."""
+        db = self.validation_db
+        k = min(self.settings.crowd_summary_image_count, len(db))
+        f = DENSITY_DOWNSAMPLE
+        h, w = db.image_size
+        for i in range(k):
+            gt = db.density_maps[i].astype(np.float32)
+            if db.roi_masks is not None:
+                gt = gt * db.roi_masks[i]  # the predictions' convention
+            # Sum-pooled to density resolution: cells stay counts.
+            gt_ds = gt.reshape(h // f, f, w // f, f).sum(axis=(1, 3))
+            pred_map = maps[i]
+            scale = float(max(gt_ds.max(), pred_map.max(), 1e-8))
+            up = lambda m: np.repeat(np.repeat(m, f, 0), f, 1)
+            panels = [db.images[i].astype(np.float32) / 255.0,
+                      self._heat(up(gt_ds) / scale),
+                      self._heat(up(pred_map) / scale)]
+            writer.add_image(f"validation/density_{i}",
+                             np.concatenate(panels, axis=1), step)
+
+    def evaluate(self, dataset: Optional[CrowdDatabase] = None,
+                 use_dnn: Optional[bool] = None) -> Dict[str, float]:
+        """Grid-evaluate ``dataset`` (default: the validation split);
+        ``Experiment.test()`` sends the test split here."""
+        db = dataset if dataset is not None else self.validation_db
+        if len(db) == 0:
+            raise ValueError("cannot evaluate an empty dataset (a len-0 "
+                             "split must not silently alias validation)")
+        pred = self.predict_image_counts(use_dnn=use_dnn, db=db)
+        return self._count_metrics(db, pred)

@@ -2,14 +2,17 @@
 the training loop.
 
 The port of ``srgan_tpu.experiment.Experiment`` (``train``,
-``training_loop``, ``prepare_summary_writers``) on one device. The loop
-enqueues steps without waiting for the device and synchronizes only on
-summary steps, where it reads the metrics.
+``training_loop``, ``prepare_summary_writers``, ``test``) on one device.
+The loop enqueues steps without waiting for the device and synchronizes
+only on summary and validation steps.
 
-Not ported yet (``ROADMAP.md``): checkpoints (save, resume), evaluation
-and validation summaries, profiling, the mesh, and the apps other than
-crowd. A setting that asks for one of them raises
-``NotImplementedError`` (:func:`check_supported`).
+An experiment runs on the CUDA card unless it is given ``device="cpu"``
+(or another device): without a card, :func:`default_device` raises
+rather than train on the CPU unasked.
+
+Not ported yet (``ROADMAP.md``): checkpoints (save, resume), profiling,
+the mesh, and the apps other than crowd. A setting that asks for one of
+them raises ``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -41,7 +44,6 @@ _UNPORTED = {
     "crowd_host_pipeline": False,
     "crowd_hbm_window": 0,
     "crowd_shard_dataset": False,
-    "crowd_rescale_factors": (),
     "crowd_label_type": "density",
     "crowd_model": "jointcnn",
 }
@@ -68,7 +70,13 @@ def check_supported(settings: Settings) -> None:
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The CUDA card; raises without one, so that nothing falls back to
+    the CPU unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device (torch.cuda.is_available() is False); pass "
+            "device=\"cpu\" to run on the CPU")
+    return torch.device("cuda")
 
 
 class Experiment:
@@ -88,6 +96,8 @@ class Experiment:
         self.gan_summary_writer: Optional[SummaryWriter] = None
         self.labeled_dataset = None
         self.unlabeled_dataset = None
+        self.validation_dataset = None
+        self.test_dataset = None
         self.models: Optional[ModelBundle] = None
         self.state: Optional[SRGANTrainState] = None
         self._train_step = None
@@ -219,9 +229,28 @@ class Experiment:
             writer.add_scalar(key, value)
 
     # ------------------------------------------------------------ validation
+    def _resolve_use_dnn(self, use_dnn: Optional[bool]) -> bool:
+        """None → the trial's trained model: the DNN for ``dnn_only``
+        trials, else the SR-GAN discriminator."""
+        return self.settings.dnn_only if use_dnn is None else use_dnn
+
     def validation_summaries(self, epoch: int, step: int) -> None:
-        raise NotImplementedError(
-            "validation summaries (crowd grid evaluation) are not ported to "
-            "PyTorch yet: see ROADMAP.md, queue 1, 'Evaluation'. Set "
-            "validation_step_period past the end of the run to train "
-            "without them.")
+        """Per-epoch validation scalars of D and the DNN (the app's)."""
+        raise NotImplementedError
+
+    def evaluate(self, dataset=None, use_dnn: Optional[bool] = None
+                 ) -> Dict[str, float]:
+        """Metrics of ``dataset`` (default: validation; the app's)."""
+        raise NotImplementedError
+
+    def test(self, use_dnn: Optional[bool] = None) -> Dict[str, float]:
+        """Final held-out evaluation on the test split. Without one, the
+        fallback to the validation split warns: a number labeled "test
+        MAE" must not quietly be validation MAE."""
+        if self.test_dataset is None:
+            import warnings
+            warnings.warn(
+                "no test split configured; Experiment.test() is reporting "
+                "VALIDATION metrics", stacklevel=2)
+            return self.evaluate(self.validation_dataset, use_dnn=use_dnn)
+        return self.evaluate(self.test_dataset, use_dnn=use_dnn)

@@ -1,17 +1,27 @@
 """Random patch extraction + normalization for crowd training batches.
 
-The port of ``srgan_tpu.ops.patches.extract_patches``: for each output
-example, gather image ``indices[i]`` from the device-resident dataset,
-cut the P×P window at ``offsets[i]``, flip it horizontally where
-``flips[i]``, cast to float32 and apply ``x * scale + shift``.
+The port of ``srgan_tpu.ops.patches``:
 
-* :func:`extract_patches` — the wrapper. On a CUDA tensor it launches the
-  hand-written kernel ``csrc/patches.cu`` (built at first use) or raises;
-  on a CPU tensor, and only there, it runs the plain version.
-* :func:`extract_patches_plain` — the same function in plain PyTorch, on
-  any device. The CPU tests use it; ``chip_smoke.py`` holds the kernel
-  against it on the card.
-* :func:`extract_patches_reference` — the NumPy golden model.
+* ``extract_patches``: for each output example, gather image
+  ``indices[i]`` from the device-resident dataset, cut the P×P window at
+  ``offsets[i]``, flip it horizontally where ``flips[i]``, cast to float32
+  and apply ``x * scale + shift``.
+* ``extract_rescaled_patches``: the same with a per-example source window
+  of side ``window_sizes[scale_idx[i]]``, normalized, then resized to P×P
+  with JAX's antialiased bilinear weights (:func:`resize_weights`),
+  optionally renormalized by ``(window / P)²`` to keep the density mass,
+  then flipped.
+
+Each comes in three functions:
+
+* the wrapper (:func:`extract_patches`, :func:`extract_rescaled_patches`).
+  On a CUDA tensor it launches its hand-written kernel of
+  ``csrc/patches.cu`` (built at first use) or raises; on a CPU tensor, and
+  only there, it runs the plain version. Every launch adds one to the
+  wrapper's ``launches``;
+* the same function in plain PyTorch (``*_plain``), on any device. The CPU
+  tests use it; ``chip_smoke.py`` holds the kernel against it on the card;
+* the NumPy golden model (``*_reference``).
 
 The output keeps the JAX package's [B, P, P, C] layout. Its
 ``.permute(0, 3, 1, 2)`` is an NCHW tensor in ``channels_last`` memory
@@ -22,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +50,43 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.srgan_extract_rescaled_patches
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     lib.srgan_cuda_error_string.argtypes = [ctypes.c_int]
     lib.srgan_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _check_launch(name: str, images: torch.Tensor,
+                  indices: Optional[torch.Tensor], **per_example
+                  ) -> torch.Tensor:
+    """Raise on what a kernel of ``csrc/patches.cu`` does not take;
+    returns ``indices`` (``arange(N)`` when None)."""
+    if images.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
+                         f"{images.device}")
+    if images.dtype not in _DTYPE_CODES:
+        raise TypeError(f"images dtype {images.dtype} is not one of "
+                        f"{sorted(map(str, _DTYPE_CODES))}")
+    if images.dim() != 4 or not images.is_contiguous():
+        raise ValueError(f"images must be a contiguous [N, H, W, C] tensor, "
+                         f"got shape {tuple(images.shape)}")
+    if indices is None:
+        indices = torch.arange(images.shape[0], dtype=torch.int32,
+                               device=images.device)
+    b = indices.shape[0]
+    for arg, t in (("indices", indices),) + tuple(per_example.items()):
+        shape = (b, 2) if arg == "offsets" else (b,)
+        if (t.device != images.device or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{arg} must be a contiguous int32 {list(shape)} tensor on "
+                f"{images.device}, got {t.dtype} {list(t.shape)} on "
+                f"{t.device}")
+    return indices
 
 
 def extract_patches(images: torch.Tensor, offsets: torch.Tensor,
@@ -70,31 +114,13 @@ def extract_patches(images: torch.Tensor, offsets: torch.Tensor,
         return extract_patches_plain(images, offsets, flips,
                                      patch_size=patch_size, scale=scale,
                                      shift=shift, indices=indices)
-    if images.device.type != "cuda":
-        raise ValueError(f"extract_patches runs on CUDA or CPU tensors, "
-                         f"got {images.device}")
-    if images.dtype not in _DTYPE_CODES:
-        raise TypeError(f"images dtype {images.dtype} is not one of "
-                        f"{sorted(map(str, _DTYPE_CODES))}")
-    if images.dim() != 4 or not images.is_contiguous():
-        raise ValueError(f"images must be a contiguous [N, H, W, C] tensor, "
-                         f"got shape {tuple(images.shape)}")
+    indices = _check_launch("extract_patches", images, indices,
+                            offsets=offsets, flips=flips)
     n, h, w, c = images.shape
+    b = indices.shape[0]
     p = int(patch_size)
     if not 0 < p <= min(h, w):
         raise ValueError(f"patch_size {p} does not fit {h}x{w} images")
-    if indices is None:
-        indices = torch.arange(n, dtype=torch.int32, device=images.device)
-    b = indices.shape[0]
-    for name, t, shape in (("indices", indices, (b,)),
-                           ("offsets", offsets, (b, 2)),
-                           ("flips", flips, (b,))):
-        if (t.device != images.device or t.dtype != torch.int32
-                or tuple(t.shape) != shape or not t.is_contiguous()):
-            raise ValueError(
-                f"{name} must be a contiguous int32 {list(shape)} tensor on "
-                f"{images.device}, got {t.dtype} {list(t.shape)} on "
-                f"{t.device}")
     out = torch.empty((b, p, p, c), dtype=torch.float32, device=images.device)
     lib = _library()
     stream = torch.cuda.current_stream(images.device).cuda_stream
@@ -157,4 +183,250 @@ def extract_patches_reference(images: np.ndarray, offsets: np.ndarray,
         if flips[i]:
             patch = patch[:, ::-1]
         out[i] = patch * scale + shift
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Random-rescale patches.
+# ---------------------------------------------------------------------------
+
+def _xla_column_sum(w: np.ndarray, window: int = 32) -> np.ndarray:
+    """Σ over axis 0 in float32, in the order of XLA's CPU reduction: the
+    rows, padded evenly on both sides to a multiple of 32, summed in order
+    within each run of 32 rows, then the runs' sums in order."""
+    if len(w) <= window:
+        total = np.zeros(w.shape[1:], np.float32)
+        for row in w:
+            total = total + row
+        return total
+    pad = -len(w) % window
+    padded = np.pad(w, ((pad // 2, pad - pad // 2), (0, 0)))
+    return _xla_column_sum(np.stack(
+        [_xla_column_sum(padded[i:i + window])
+         for i in range(0, len(padded), window)]), window)
+
+
+@functools.lru_cache(maxsize=None)
+def resize_weights(in_size: int, out_size: int) -> np.ndarray:
+    """The [out, in] float32 weights of ``jax.image.resize(...,
+    method="bilinear")`` along one axis: the port of
+    ``jax._src.image.scale.compute_weight_mat`` with the triangle kernel
+    and antialiasing, computed in float32 as JAX computes it (the scale
+    ``out/in`` and its inverse in Python floats, every array op in
+    float32; the column sum in XLA's CPU order). Equal, bit for bit, to
+    the weights JAX's resize applies when run op by op; its compiled CPU
+    program contracts some multiply-adds into FMAs, within one float32
+    rounding of these. Read-only (cached)."""
+    f32 = np.float32
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = f32(max(inv_scale, 1.0))       # the antialias
+    sample = ((np.arange(out_size, dtype=f32) + f32(0.5)) * f32(inv_scale)
+              - f32(0.5))
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]
+               ) / kernel_scale
+    w = np.maximum(f32(0), f32(1) - x)            # [in, out]
+    total = _xla_column_sum(w)
+    w = np.where(np.abs(total) > 1000 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    out = np.ascontiguousarray(np.where(inside[None, :], w, f32(0)).T,
+                               dtype=f32)
+    out.flags.writeable = False
+    return out
+
+
+def _check_windows(window_sizes: Tuple[int, ...], h: int, w: int) -> None:
+    if min(window_sizes) < 1:
+        raise ValueError(f"window_sizes must be ≥ 1, got {window_sizes}")
+    if max(window_sizes) > min(h, w):
+        raise ValueError(f"largest rescale window {max(window_sizes)} "
+                         f"exceeds image size {h}x{w}")
+
+
+def _mass_factor(window: int, patch: int) -> float:
+    """``(window / P)²`` rounded to float32, as JAX multiplies by it."""
+    return float(np.float32((window / patch) ** 2))
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_table(window_sizes: Tuple[int, ...], patch: int
+               ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """The kernel's resize taps: per window size s and output coordinate
+    o, a first source index ``first[s, o]`` and K weights
+    ``weights[s, o, k]`` for sources ``first + k`` (zero past the window),
+    K the widest run of nonzero weights (3 for 280 → 224)."""
+    mats = [resize_weights(ws, patch) for ws in window_sizes]
+    runs = []
+    for m in mats:
+        nz = m != 0
+        lo = np.where(nz.any(1), nz.argmax(1), 0)
+        hi = np.where(nz.any(1), m.shape[1] - nz[:, ::-1].argmax(1), 0)
+        runs.append((lo, hi))
+    taps = max(1, max(int((hi - lo).max()) for lo, hi in runs))
+    first = np.zeros((len(mats), patch), np.int32)
+    weights = np.zeros((len(mats), patch, taps), np.float32)
+    for s, (m, (lo, _)) in enumerate(zip(mats, runs)):
+        ws = m.shape[1]
+        first[s] = np.clip(lo, 0, max(ws - taps, 0))
+        for k in range(taps):
+            j = first[s] + k
+            ok = j < ws
+            weights[s, ok, k] = m[np.arange(patch)[ok], j[ok]]
+    return first, weights, taps
+
+
+@functools.lru_cache(maxsize=None)
+def _device_tap_table(window_sizes: Tuple[int, ...], patch: int,
+                      device: torch.device):
+    """(window sizes, first, weights, mass factors, K) on ``device``,
+    built once per (window sizes, P)."""
+    first, weights, taps = _tap_table(window_sizes, patch)
+    mass = [_mass_factor(ws, patch) for ws in window_sizes]
+    return (torch.tensor(window_sizes, dtype=torch.int32, device=device),
+            torch.from_numpy(first).to(device),
+            torch.from_numpy(weights).to(device),
+            torch.tensor(mass, dtype=torch.float32, device=device), taps)
+
+
+def extract_rescaled_patches(images: torch.Tensor, offsets: torch.Tensor,
+                             flips: torch.Tensor, scale_idx: torch.Tensor, *,
+                             patch_size: int,
+                             window_sizes: Tuple[int, ...],
+                             scale: float = 1.0, shift: float = 0.0,
+                             preserve_mass: bool = False,
+                             indices: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Random-rescale patch extraction: per-example source windows of side
+    ``window_sizes[scale_idx[i]]``, normalized, resized to ``patch_size``
+    with JAX's antialiased bilinear weights, then flipped.
+
+    Args:
+      images, indices, flips, scale, shift: as :func:`extract_patches`.
+      offsets: [B, 2] int32 (y, x); the caller guarantees
+        ``0 ≤ o ≤ dim − window_sizes[scale_idx[i]]`` per example.
+      scale_idx: [B] int32 index into ``window_sizes``.
+      window_sizes: source window sides, e.g. ``(168, 224, 280)`` around a
+        224 patch. A window of side P is copied exactly, as JAX skips the
+        resize there.
+      preserve_mass: multiply by ``(window / patch_size)²`` so that each
+        patch keeps the density mass (head count) of its window.
+
+    Returns: [B, P, P, C] float32 on the device of ``images``.
+
+    Every launch of the CUDA kernel adds one to
+    ``extract_rescaled_patches.launches``.
+    """
+    window_sizes = tuple(int(v) for v in window_sizes)
+    if images.device.type == "cpu":
+        return extract_rescaled_patches_plain(
+            images, offsets, flips, scale_idx, patch_size=patch_size,
+            window_sizes=window_sizes, scale=scale, shift=shift,
+            preserve_mass=preserve_mass, indices=indices)
+    indices = _check_launch("extract_rescaled_patches", images, indices,
+                            offsets=offsets, flips=flips, scale_idx=scale_idx)
+    n, h, w, c = images.shape
+    _check_windows(window_sizes, h, w)
+    b = indices.shape[0]
+    p = int(patch_size)
+    if p < 1:
+        raise ValueError(f"patch_size must be ≥ 1, got {p}")
+    # One f32 row of the largest window in (static) shared memory.
+    if max(window_sizes) * c * 4 > 48 * 1024:
+        raise ValueError(f"a {max(window_sizes)}-wide window of {c} "
+                         f"channels exceeds the kernel's 48 KB row buffer")
+    windows, first, weights, mass, taps = _device_tap_table(
+        window_sizes, p, images.device)
+    out = torch.empty((b, p, p, c), dtype=torch.float32, device=images.device)
+    lib = _library()
+    stream = torch.cuda.current_stream(images.device).cuda_stream
+    code = lib.srgan_extract_rescaled_patches(
+        images.data_ptr(), indices.data_ptr(), offsets.data_ptr(),
+        flips.data_ptr(), scale_idx.data_ptr(), windows.data_ptr(),
+        first.data_ptr(), weights.data_ptr(), mass.data_ptr(),
+        out.data_ptr(), _DTYPE_CODES[images.dtype], b, h, w, c, p,
+        len(window_sizes), taps, max(window_sizes), scale, shift,
+        int(bool(preserve_mass)), stream)
+    if code != 0:
+        raise RuntimeError(f"rescaled patches kernel launch failed: "
+                           f"{lib.srgan_cuda_error_string(code).decode()}")
+    extract_rescaled_patches.launches += 1
+    return out
+
+
+extract_rescaled_patches.launches = 0
+
+
+def extract_rescaled_patches_plain(images: torch.Tensor,
+                                   offsets: torch.Tensor,
+                                   flips: torch.Tensor,
+                                   scale_idx: torch.Tensor, *,
+                                   patch_size: int,
+                                   window_sizes: Tuple[int, ...],
+                                   scale: float = 1.0, shift: float = 0.0,
+                                   preserve_mass: bool = False,
+                                   indices: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """The same function in plain PyTorch, on any device: per window size,
+    the examples that use it are cropped and normalized
+    (:func:`extract_patches_plain`), contracted with the resize weights
+    along y and x, and scaled by the mass factor; then all are flipped.
+    Raises on a window outside its image."""
+    window_sizes = tuple(int(v) for v in window_sizes)
+    n, h, w, c = images.shape
+    _check_windows(window_sizes, h, w)
+    p = int(patch_size)
+    device = images.device
+    if indices is None:
+        indices = torch.arange(n, device=device)
+    sidx = scale_idx.to(device=device, dtype=torch.long)
+    out = torch.zeros((indices.shape[0], p, p, c), dtype=torch.float32,
+                      device=device)
+    for s, ws in enumerate(window_sizes):
+        sel = (sidx == s).nonzero().flatten()
+        if sel.numel() == 0:
+            continue
+        win = extract_patches_plain(
+            images, offsets.to(device)[sel], torch.zeros_like(sel),
+            patch_size=ws, scale=scale, shift=shift,
+            indices=indices.to(device)[sel])
+        if ws != p:  # JAX skips the resize of an identity window
+            wt = torch.from_numpy(resize_weights(ws, p).copy()).to(device)
+            win = torch.einsum("yi,kijc,xj->kyxc", wt, win, wt)
+        if preserve_mass:
+            win = win * _mass_factor(ws, p)
+        out[sel] = win
+    flip = flips.to(device=device).reshape(-1, 1, 1, 1) != 0
+    return torch.where(flip, out.flip(2), out)
+
+
+def extract_rescaled_patches_reference(images: np.ndarray,
+                                       offsets: np.ndarray,
+                                       flips: np.ndarray,
+                                       scale_idx: np.ndarray,
+                                       patch_size: int,
+                                       window_sizes: Tuple[int, ...],
+                                       scale: float = 1.0,
+                                       shift: float = 0.0,
+                                       preserve_mass: bool = False,
+                                       indices: np.ndarray | None = None
+                                       ) -> np.ndarray:
+    """NumPy golden model: per example, crop → normalize → resize with
+    :func:`resize_weights` → mass factor → flip (``srgan_tpu.ops.patches``
+    keeps the same, resizing with ``jax.image.resize``)."""
+    if indices is None:
+        indices = np.arange(images.shape[0])
+    p = patch_size
+    out = np.empty((len(indices), p, p, images.shape[3]), np.float32)
+    for i in range(len(indices)):
+        ws = int(window_sizes[int(scale_idx[i])])
+        oy, ox = int(offsets[i, 0]), int(offsets[i, 1])
+        win = images[int(indices[i]),
+                     oy:oy + ws, ox:ox + ws].astype(np.float32)
+        win = win * np.float32(scale) + np.float32(shift)
+        if ws != p:
+            m = resize_weights(ws, p)
+            win = np.einsum("yi,ijc,xj->yxc", m, win, m)
+        if preserve_mass:
+            win = win * np.float32(_mass_factor(ws, p))
+        out[i] = win[:, ::-1] if flips[i] else win
     return out

@@ -11,7 +11,10 @@ import pytest
 import torch
 
 from srgan_tpu_torch.ops import fused_norm as fn
-from srgan_tpu_torch.ops.patches import extract_patches, extract_patches_plain
+from srgan_tpu_torch.ops.patches import (extract_patches,
+                                         extract_patches_plain,
+                                         extract_rescaled_patches,
+                                         extract_rescaled_patches_plain)
 
 N, H, W, P, B = 3, 80, 96, 32, 6
 
@@ -72,6 +75,41 @@ def test_patch_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="dtype"):
         extract_patches(images.to(torch.int16), offsets, flips,
                         patch_size=P, indices=indices)
+
+
+@pytest.mark.parametrize("windows", [(24, 32, 40), (19, 45)])
+@pytest.mark.parametrize("dtype,channels,scale,shift,mass", [
+    (torch.uint8, 3, 2.0 / 255.0, -1.0, False),
+    (torch.float32, 1, 1.0, 0.0, True),
+    (torch.bfloat16, 1, 1.0, 0.0, True),
+])
+def test_rescale_kernel_equals_plain(windows, dtype, channels, scale, shift,
+                                     mass):
+    """Images within 1e-6, labels within 1e-5 of their largest value (the
+    same float32 terms in another sum order); windows of side P exactly."""
+    images, indices, _, flips = _inputs(dtype, channels)
+    dev = images.device
+    sidx = torch.arange(B, device=dev, dtype=torch.int32) % len(windows)
+    win = torch.tensor(windows, device=dev)[sidx.long()]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    offsets = torch.stack(
+        [(torch.rand(B, generator=gen, device=dev) * (H - win + 1)).long(),
+         (torch.rand(B, generator=gen, device=dev) * (W - win + 1)).long()],
+        -1)
+    offsets[0] = 0
+    offsets[1] = torch.stack([H - win[1], W - win[1]])
+    offsets = offsets.to(torch.int32).contiguous()
+    kw = dict(patch_size=P, window_sizes=windows, scale=scale, shift=shift,
+              preserve_mass=mass, indices=indices)
+    before = extract_rescaled_patches.launches
+    got = extract_rescaled_patches(images, offsets, flips, sidx, **kw)
+    torch.cuda.synchronize()
+    assert extract_rescaled_patches.launches == before + 1
+    want = extract_rescaled_patches_plain(images, offsets, flips, sidx, **kw)
+    tol = 1e-6 if dtype == torch.uint8 else 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    identity = win == P
+    torch.testing.assert_close(got[identity], want[identity], rtol=0, atol=0)
 
 
 # The fused norm kernels against their plain versions: small shapes of

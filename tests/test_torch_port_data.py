@@ -77,10 +77,11 @@ def test_random_patch_args_draw_the_same_numbers():
     ours, theirs = _experiments()
     a = ours._random_patch_args(np.random.default_rng(9), 6, (80, 96), 5)
     b = theirs._random_patch_args(np.random.default_rng(9), 6, (80, 96), 5)
-    for x, y in zip(a, b[:3]):
+    assert len(a) == len(b) == 4
+    for x, y in zip(a, b):
         assert x.dtype == y.dtype
         np.testing.assert_array_equal(x, y)
-    np.testing.assert_array_equal(b[3], 0)  # scale index: rescale is off
+    np.testing.assert_array_equal(a[3], 0)  # scale index: rescale is off
 
 
 def test_patch_args_stream_draws_the_same_numbers():
@@ -89,14 +90,16 @@ def test_patch_args_stream_draws_the_same_numbers():
     a, b = ours._patch_args_stream(), theirs._patch_args_stream()
     for _ in range(3):
         x, y = next(a), next(b)
-        # JAX: (idx, offs, flips, sidx) labeled + the same unlabeled.
-        for ours_arr, jax_arr in zip(x, y[0:3] + y[4:7]):
+        # (idx, offs, flips, sidx) labeled + the same unlabeled.
+        assert len(x) == len(y) == 8
+        for ours_arr, jax_arr in zip(x, y):
             np.testing.assert_array_equal(ours_arr, jax_arr)
 
 
 def test_port_imports_no_jax():
     code = ("import sys, srgan_tpu_torch, srgan_tpu_torch.convert, "
-            "srgan_tpu_torch.ops.patches, srgan_tpu_torch.ops._build; "
+            "srgan_tpu_torch.ops.patches, srgan_tpu_torch.ops._build, "
+            "srgan_tpu_torch.metrics, srgan_tpu_torch.apps.common; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'PIL', "
             "'srgan_tpu')); print(bad); sys.exit(1 if bad else 0)")
