@@ -5,10 +5,10 @@
 
 Phases, each of which fails the run if it fails:
 
-1. build   — compile every CUDA kernel of the training path from the
-             sources in this checkout (``nvcc`` for sm_90a, one process
-             per source, all started together; ``patches.cu`` holds both
-             patch samplers), timed;
+1. build   — compile every CUDA kernel of the port from the sources in
+             this checkout (``nvcc`` for sm_90a, one process per source,
+             all started together; ``patches.cu`` holds both patch
+             samplers), timed;
 2. kernels — the patch-sampler kernel against its plain PyTorch version
              at the flagship shapes, for uint8 images and float32 and
              bfloat16 density labels: labels exactly, images within 1e-6;
@@ -17,9 +17,13 @@ Phases, each of which fails the run if it fails:
              then the fused GroupNorm + activation forward and backward
              kernels against their plain versions at every norm shape of
              the flagship step, in bfloat16 (tolerances at
-             ``check_norm_kernels``); all timed with CUDA events, beside
-             their bound and, where one exists, one PyTorch call that
-             computes the same function;
+             ``check_norm_kernels``); the density kernel against its plain
+             version at 16 maps of 4096 slots and at one map of 12 865
+             heads (384×512, σ = 8; tolerance at ``_check_density``); the
+             copy probe in both launch layouts at both of the bandwidth
+             tool's shapes, bit for bit; all timed with CUDA events (the
+             copy kernel in phase 9), beside their bound and, where one
+             exists, one PyTorch call that computes the same function;
 3. second  — the gradient penalty's second order through the fused norm
              on the card, float32: the kernel path against autograd
              through the plain forward;
@@ -41,10 +45,28 @@ Phases, each of which fails the run if it fails:
              (``NORM_LAUNCHES_PER_STEP``, ``LAUNCHES_PER_VALIDATION``);
 6. time    — 20 more steps of each between ``torch.cuda.synchronize()``
              calls: ms/step, images/s and the peak of allocated device
-             memory; and one validation pass.
+             memory; and one validation pass;
+7. preprocess — a raw UCF-QNRF-layout database synthesized from seed 0
+             (16/16/16/2 JPEGs of 768×1024, up to 2000 heads each)
+             through ``python -m srgan_tpu_torch.data.crowd``'s ``main``
+             in resize mode at 384×512: one density-kernel launch per
+             image, each map against the plain version and its count;
+8. cli     — ``python -m srgan_tpu_torch``'s ``main`` on that database at
+             the ``crowd_flagship`` preset under ``norm_impl`` "pallas":
+             train 4 steps with checkpoints every 2, restore step 4 into a
+             fresh experiment (bit for bit), resume to step 6, evaluate
+             only and export the density maps;
+9. bandwidth — the copy probe's tool, ``python -m
+             srgan_tpu_torch.tools.norm_bandwidth_bench``'s ``main``: one
+             JSON line per variant, each checked exact and timed; the
+             kernel table takes the copy kernel's and ``copy_``'s times
+             from it.
 
-Prints the kernel table as one JSON line, then the card's name and power
-limit as nvidia-smi gives them, and last ``{"ok": true, "device": ...}``.
+Prints the kernel table as one JSON line (each kernel's launches counted
+on the path that runs it: the training kernels in the rescale run of
+phase 5, the density kernel in phase 7, the copy kernel in phase 9),
+then the card's name and power limit as nvidia-smi gives them, and last
+``{"ok": true, "device": ...}``.
 Exits nonzero, printing no result, without a CUDA card or outside a
 checkout of the repository.
 """
@@ -112,6 +134,11 @@ NORM_LAUNCHES_PER_STEP = {"fwd": 30, "bwd": 25}
 LAUNCHES_PER_VALIDATION = {"extract_patches": 4, "group_norm_act_fwd": 21,
                            "group_norm_act_bwd": 0,
                            "extract_rescaled_patches": 0}
+# The raw database of the preprocessing phase: images per split, and the
+# raw image size (UCF-QNRF's images are photographs of about this size and
+# larger; resize mode halves these).
+RAW_SPLITS = {"labeled": 16, "unlabeled": 16, "validation": 16, "test": 2}
+RAW_H, RAW_W = 768, 1024
 TINY = dict(batch_size=4, image_patch_size=32, model_base_width=8,
             latent_dimension=16, labeled_dataset_size=6,
             unlabeled_dataset_size=6, validation_dataset_size=1,
@@ -146,12 +173,14 @@ def least_ms(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paired_ms(plain, kernel, iters: int):
+def paired_ms(plain, kernel, iters: int, plain_iters: int = 0):
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain, so that
-    both see the same warm-up."""
-    t_plain = cuda_ms(plain, iters)
+    both see the same warm-up; the plain version over ``plain_iters``
+    calls where given (a slow one), else ``iters``."""
+    plain_iters = plain_iters or iters
+    t_plain = cuda_ms(plain, plain_iters)
     t_kernel = cuda_ms(kernel, iters) + cuda_ms(kernel, iters)
-    t_plain += cuda_ms(plain, iters)
+    t_plain += cuda_ms(plain, plain_iters)
     return t_kernel / 2, t_plain / 2
 
 
@@ -443,6 +472,148 @@ def library_norm_ms(x, scale, bias, dy):
     return {"fwd": fwd, "bwd": bwd}
 
 
+def _density_inputs(rng, b, n, counts, h, w):
+    """[b, n, 2] float32 heads uniform over the canvas widened by 16 px on
+    each side (NaN in the slots past each count)."""
+    heads = np.stack([rng.uniform(-16, h + 16, (b, n)),
+                      rng.uniform(-16, w + 16, (b, n))], -1).astype(np.float32)
+    for i, c in enumerate(counts):
+        heads[i, c:] = np.nan
+    return heads
+
+
+def _nonzero_pairs(heads, counts, h, w, sigma) -> int:
+    """The (pixel, valid head) pairs of ``heads`` [b, n, 2] (y, x) on the
+    h×w canvas whose float32 term exp(−r²/2σ²) is not 0: r² ≤ 300·ln 2·σ²,
+    as exp rounds to 0 below 2⁻¹⁵⁰, half the least subnormal. Past that
+    radius a term adds an exact 0, so these pairs are the work the maps
+    need."""
+    r2 = 300.0 * math.log(2.0) * sigma ** 2
+    reach = math.ceil(math.sqrt(r2)) + 1
+    pts = np.concatenate([heads[i, :c] for i, c in enumerate(counts)]
+                         ).astype(np.float64)
+    total = 0
+    for chunk in np.array_split(pts, max(1, len(pts) // 4096)):
+        hy, hx = chunk[:, :1], chunk[:, 1:]
+        y = np.floor(hy) + np.arange(-reach, reach + 1)
+        half2 = r2 - (y - hy) ** 2
+        rows = (half2 >= 0) & (y >= 0) & (y < h)
+        half = np.sqrt(np.maximum(half2, 0.0))
+        lo = np.maximum(np.ceil(hx - half), 0)
+        hi = np.minimum(np.floor(hx + half), w - 1)
+        total += int(np.where(rows, np.maximum(hi - lo + 1, 0), 0).sum())
+    return total
+
+
+def _check_density(name, got, want, counts):
+    """The density tolerance: |got − want| ≤ 1e-6 + 1e-4·|want| per
+    element, and each map's sum within 1e-4·max(count, 1) of its count.
+    Returns the largest |got − want|."""
+    err = _assert_within(name, got, want, 1e-6 + 1e-4 * want.abs())
+    sums = got.double().sum(dim=(1, 2)).cpu().numpy()
+    counts = np.asarray(counts, np.float64)
+    off = np.abs(sums - counts) / np.maximum(counts, 1.0)
+    if not off.max() <= 1e-4:
+        i = int(off.argmax())
+        raise AssertionError(f"{name}: map {i} sums to {sums[i]}, its count "
+                             f"is {counts[i]:g}")
+    return err
+
+
+def check_density_kernel(dev):
+    """Phase 2, density: the kernel against ``density_maps_plain`` on the
+    card, σ = 8 on 384×512 canvases (the preprocessor's default size and
+    the flagship's images): B = 16 maps of N = 4096 slots with counts
+    uniform in [0, 4096], and one map of 12 865 heads (UCF-QNRF's most
+    crowded image). Tolerance at ``_check_density``. Returns the kernel
+    table entry of the B = 16 case (launches filled in by the
+    preprocessing phase)."""
+    from srgan_tpu_torch.ops.density import density_maps, density_maps_plain
+    h, w, sigma = 384, 512, 8.0
+    rng = np.random.default_rng(7)
+    cases = [("16 x 4096 slots", 16, 4096, rng.integers(0, 4097, 16)),
+             ("1 x 12865 heads", 1, 12865, np.array([12865]))]
+    entry = None
+    for name, b, n, counts in cases:
+        heads_np = _density_inputs(rng, b, n, counts, h, w)
+        heads = torch.from_numpy(heads_np).to(dev)
+        counts_t = torch.from_numpy(counts.astype(np.int32)).to(dev)
+        call = dict(height=h, width=w)
+        got = density_maps(heads, counts_t, sigma, **call)
+        torch.cuda.synchronize()
+        want = density_maps_plain(heads, counts_t, sigma, **call)
+        if got.shape != (b, h, w) or got.dtype != torch.float32:
+            raise AssertionError(f"density kernel returned {got.dtype} "
+                                 f"{list(got.shape)}")
+        err = _check_density(f"density kernel [{name}]", got, want, counts)
+        t_kernel, t_plain = paired_ms(
+            lambda: density_maps_plain(heads, counts_t, sigma, **call),
+            lambda: density_maps(heads, counts_t, sigma, **call), 10,
+            plain_iters=1)
+        # Heads and counts read once, the maps written once; two float32
+        # operations (the separable form's multiply-add) per (pixel, valid
+        # head) pair whose term is not 0, the least work of the function.
+        # The kernel evaluates every pair of the canvas.
+        pairs = h * w * int(counts.sum())
+        needed = _nonzero_pairs(heads_np, counts, h, w, sigma)
+        bound_ms, bound_by = least_ms(b * n * 8 + b * 4 + b * h * w * 4,
+                                      2 * needed)
+        log(f"kernel density_maps [{name}, sigma {sigma:g}] -> "
+            f"{list(got.shape)}: max|err| {err:g}, kernel {t_kernel:.4f} ms "
+            f"({pairs / t_kernel / 1e9:.2f} T (pixel, head) pairs/s over "
+            f"{pairs:.4g} evaluated, {needed:.4g} of them nonzero), plain "
+            f"{t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        if entry is None:
+            # No single PyTorch call renders normalized Gaussians.
+            entry = {"name": "density_maps", "route": "cuda",
+                     "source": "srgan_tpu_torch/csrc/density.cu",
+                     "replaces": "srgan_tpu/ops/density.py:30",
+                     "launches": None, "max_abs_err": err, "ms": t_kernel,
+                     "plain_ms": t_plain, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        del heads, got, want
+        torch.cuda.empty_cache()
+    return entry
+
+
+def check_copy_kernel(dev):
+    """Phase 2, copy probe: the kernel in both launch layouts at both
+    shapes of the bandwidth tool, bfloat16, bit-equal to its plain version
+    (a Python loop of slab copies) and to its source; the plain version
+    timed, beside the bound (each byte read once and written once).
+    Returns the kernel table entry of per_example at [360, 12544, 64], the
+    yardstick of the fused norm; the kernel's and ``copy_``'s times come
+    from the bandwidth tool's run in phase 9."""
+    from srgan_tpu_torch.tools import norm_bandwidth_bench as bw
+    gen = torch.Generator(device=dev).manual_seed(5)
+    entry = None
+    for shape in bw.SHAPES:
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        bound_ms, bound_by = least_ms(2 * x.numel() * x.element_size(), 0)
+        for layout, rows in (("per_example", 0), ("batch_strided", 6272)):
+            got = bw.copy(x, layout, rows)
+            want = bw.copy_plain(x, layout, rows)
+            if not (torch.equal(got, want) and torch.equal(want, x)):
+                raise AssertionError(f"copy kernel ({layout}) is not exact "
+                                     f"at {list(shape)}")
+            del got, want
+            t_plain = cuda_ms(lambda: bw.copy_plain(x, layout, rows), 20)
+            log(f"kernel copy [{layout}, rows {rows}] {list(shape)} bf16: "
+                f"exact, plain {t_plain:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by})")
+            if layout == "per_example" and shape == bw.SHAPES[-1]:
+                entry = {"name": "copy", "route": "cuda",
+                         "source": "srgan_tpu_torch/csrc/copy.cu",
+                         "replaces": "tools/norm_bandwidth_bench.py:38",
+                         "launches": None, "max_abs_err": 0.0, "ms": None,
+                         "plain_ms": t_plain, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": None}
+        del x
+        torch.cuda.empty_cache()
+    return entry
+
+
 def check_second_order(dev):
     """Phase 3: ∂/∂scale of mean((‖∂/∂x Σ y²‖ − 1)²), the derivative the
     gradient penalty takes through the norm (tests/test_fused_norm.py), in
@@ -559,8 +730,8 @@ def check_small_step(dev, norm_impl, factors=()):
                                  f"CPU")
     launches = (fn._launch_fwd.launches - launches[0],
                 extract_rescaled_patches.launches - launches[1])
-    if dev.type == "cuda" and ((launches[0] > 0) != (norm_impl == "pallas")
-                               or launches[1] != (3 if factors else 0)):
+    if ((launches[0] > 0) != (norm_impl == "pallas")
+            or launches[1] != (3 if factors else 0)):
         raise AssertionError(f"small step ({norm_impl}, factors {factors}): "
                              f"(norm forward, rescale) kernels launched "
                              f"{launches} times")
@@ -627,8 +798,7 @@ def train_main_path(settings, dev, card: str) -> dict:
     impl = settings.norm_impl
     rescale = bool(settings.crowd_rescale_factors)
     what = f"{impl}{', rescale' if rescale else ''}"
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     counters = {"extract_patches": extract_patches,
                 "extract_rescaled_patches": extract_rescaled_patches,
                 "group_norm_act_fwd": fn._launch_fwd,
@@ -638,7 +808,7 @@ def train_main_path(settings, dev, card: str) -> dict:
     fn.group_norm_act.layout_copies = 0
     t0 = time.perf_counter()
     state = exp.train()
-    sync(dev)
+    torch.cuda.synchronize()
     launches = {name: c.launches for name, c in counters.items()}
     copies = fn.group_norm_act.layout_copies
     validations = steps // VALIDATION_PERIOD
@@ -656,15 +826,13 @@ def train_main_path(settings, dev, card: str) -> dict:
     per_validation = {name: count if impl == "pallas"
                       or not name.startswith("group_norm") else 0
                       for name, count in LAUNCHES_PER_VALIDATION.items()}
-    if dev.type == "cuda":
-        for name, count in per_step.items():
-            want = count * steps + per_validation[name] * validations
-            if launches[name] != want:
-                raise AssertionError(
-                    f"{name} launched {launches[name]} times in {steps} "
-                    f"steps and {validations} validation passes, not "
-                    f"{want} ({count} per step, {per_validation[name]} per "
-                    f"validation pass)")
+    for name, count in per_step.items():
+        want = count * steps + per_validation[name] * validations
+        if launches[name] != want:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times in {steps} steps "
+                f"and {validations} validation passes, not {want} ({count} "
+                f"per step, {per_validation[name]} per validation pass)")
     losses = read_scalars(exp.trial_directory)
     merged = {}
     for sub in ("GAN", "DNN"):
@@ -695,19 +863,18 @@ def train_main_path(settings, dev, card: str) -> dict:
     stream = batches()
     for _ in range(2):
         exp._train_step(exp.state, *next(stream), exp._rng)
-    sync(dev)
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(TIMED_STEPS):
         _, metrics = exp._train_step(exp.state, *next(stream), exp._rng)
-    sync(dev)
+    torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     if not all(math.isfinite(float(v)) for v in metrics.values()):
         raise AssertionError(f"timed steps: losses {metrics}")
-    peak = (f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB"
-            if dev.type == "cuda" else "not measured")
+    peak = f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB"
     t0 = time.perf_counter()
     exp.validation_summaries(epoch=0, step=10 ** 6)
-    sync(dev)
+    torch.cuda.synchronize()
     t_val = time.perf_counter() - t0
     log(f"time ({what}): {1e3 * elapsed / TIMED_STEPS:.2f} ms/step, "
         f"{settings.batch_size * TIMED_STEPS / elapsed:.2f} images/s "
@@ -718,9 +885,262 @@ def train_main_path(settings, dev, card: str) -> dict:
     return launches
 
 
-def sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+def synthesize_raw_database(root: str):
+    """A raw UCF-QNRF-layout database from seed 0: per split
+    (``RAW_SPLITS``) a directory of 768×1024 JPEGs ``img_<i>.jpg`` and
+    ``img_<i>_ann.mat`` annotations (``annPoints``, [M, 2] (x, y)) of up
+    to 2000 heads; the test split's first image has none. Returns
+    {split: [heads (x, y) float32 per image]}."""
+    from PIL import Image
+    from scipy.io import savemat
+    rng = np.random.default_rng(0)
+    heads = {}
+    for split, count in RAW_SPLITS.items():
+        raw = os.path.join(root, split)
+        os.makedirs(raw)
+        heads[split] = []
+        for i in range(count):
+            # Smooth pixels (upsampled noise): JPEG-sized like a photo.
+            small = rng.integers(0, 256, (24, 32, 3)).astype(np.uint8)
+            Image.fromarray(small).resize((RAW_W, RAW_H), Image.BILINEAR
+                                          ).save(os.path.join(
+                                              raw, f"img_{i:04d}.jpg"))
+            n = 0 if (split, i) == ("test", 0) else int(rng.integers(0, 2001))
+            xy = np.stack([rng.uniform(0, RAW_W, n), rng.uniform(0, RAW_H, n)],
+                          -1)
+            savemat(os.path.join(raw, f"img_{i:04d}_ann.mat"),
+                    {"annPoints": xy})
+            heads[split].append(xy.astype(np.float32))
+    return heads
+
+
+def preprocess_main_path(dev, root: str) -> tuple:
+    """Phase 7: the raw database through the preprocessing CLI,
+    ``srgan_tpu_torch.data.crowd.main`` in resize mode at 384×512, σ = 8,
+    one call per split, the density labels rendered by the kernel on the
+    card. Checks one density launch per image; each written map against
+    ``density_maps_plain`` on the card from the same heads, scaled as the
+    preprocessor scales them (tolerance at ``_check_density``); each
+    image's count. Returns (database directory, density launches)."""
+    import contextlib
+    import io
+    import shutil
+
+    from srgan_tpu_torch.data.crowd import CrowdDatabase
+    from srgan_tpu_torch.data.crowd import main as preprocess
+    from srgan_tpu_torch.ops.density import density_maps, density_maps_plain
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    heads = synthesize_raw_database(os.path.join(root, "raw"))
+    t_write = time.perf_counter() - t0
+    db_dir = os.path.join(root, "db")
+    images = sum(RAW_SPLITS.values())
+    density_maps.launches = 0
+    t0 = time.perf_counter()
+    for split in RAW_SPLITS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = preprocess([os.path.join(root, "raw", split),
+                             os.path.join(db_dir, f"{split}.npz"), "--mode",
+                             "resize", "--height", "384", "--width", "512",
+                             "--sigma", "8"])
+        if rc != 0:
+            raise AssertionError(f"preprocessing {split} returned {rc}")
+        log("preprocess: " + out.getvalue().strip())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = density_maps.launches
+    if launches != images:
+        raise AssertionError(f"density kernel launched {launches} times for "
+                             f"{images} images")
+    worst = 0.0
+    for split, split_heads in heads.items():
+        db = CrowdDatabase.load(os.path.join(db_dir, f"{split}.npz"))
+        n = max(1, max(len(h) for h in split_heads))
+        padded = np.zeros((len(split_heads), n, 2), np.float32)
+        for i, xy in enumerate(split_heads):
+            # raw (x, y) → resized (y, x), in float32 as the preprocessor
+            padded[i, :len(xy)] = np.stack([xy[:, 1] * (384 / RAW_H),
+                                            xy[:, 0] * (512 / RAW_W)], -1)
+        counts = np.array([len(h) for h in split_heads], np.int32)
+        np.testing.assert_array_equal(db.head_counts, counts)
+        want = density_maps_plain(torch.from_numpy(padded).to(dev),
+                                  torch.from_numpy(counts).to(dev), 8.0,
+                                  height=384, width=512)
+        worst = max(worst, _check_density(
+            f"preprocessed {split} maps", torch.from_numpy(
+                db.density_maps).to(dev), want, counts))
+    # The kernel's own time on the most crowded image of the database.
+    xy = max((h for split in heads.values() for h in split), key=len)
+    one = torch.from_numpy(np.stack([xy[:, 1] * (384 / RAW_H),
+                                     xy[:, 0] * (512 / RAW_W)], -1)[None]
+                           ).to(dev)
+    one_count = torch.tensor([len(xy)], dtype=torch.int32, device=dev)
+    t_one = cuda_ms(lambda: density_maps(one, one_count, 8.0, height=384,
+                                         width=512), 10)
+    log(f"preprocess: {images} raw 768x1024 images ({t_write:.1f} s to "
+        f"synthesize) -> 384x512 in {elapsed:.2f} s, "
+        f"{1e3 * elapsed / images:.2f} ms per image (JPEG decode and "
+        f"resize, the density label on the card, the npz write); density kernel launches "
+        f"{launches}; maps vs plain on the card max|err| {worst:g}; the "
+        f"kernel alone on the {len(xy)}-head image {t_one:.4f} ms")
+    return db_dir, launches
+
+
+def _cli(argv) -> dict:
+    """``python -m srgan_tpu_torch`` in this process; its JSON line."""
+    import contextlib
+    import io
+
+    from srgan_tpu_torch.__main__ import main
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main(argv)
+    if rc != 0:
+        raise AssertionError(f"main({argv}) returned {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _finite_metrics(what, result, splits=("validation", "test")):
+    for split in splits:
+        values = result.get(split) or {}
+        if set(values) != {"MAE", "RMSE", "NVE", "NAE"} or not all(
+                map(math.isfinite, values.values())):
+            raise AssertionError(f"{what}: {split} metrics {values}")
+
+
+def cli_main_path(dev, db_dir: str, logs: str) -> dict:
+    """Phase 8: the command line on the preprocessed database at the
+    ``crowd_flagship`` preset under ``norm_impl`` "pallas": train 4 steps
+    with checkpoints every 2 and validation every 4; restore step 4 into
+    a fresh experiment, every tensor bit-equal to the checkpoint written;
+    resume to step 6; evaluate only, exporting the density maps. Returns
+    the kernel launches of the first run."""
+    from srgan_tpu_torch import CrowdExperiment, Settings, checkpoint
+    from srgan_tpu_torch.ops import fused_norm as fn
+    from srgan_tpu_torch.ops.density import density_maps
+    from srgan_tpu_torch.ops.patches import (extract_patches,
+                                             extract_rescaled_patches)
+    from srgan_tpu_torch.presets import apply_preset
+    flags = dict(norm_impl="pallas", crowd_database_path=db_dir,
+                 logs_directory=logs, trial_name="chip_smoke_cli",
+                 summary_step_period=1, seed=0)
+    base = ["crowd", "--preset", "crowd_flagship"] + [
+        f"--{k}={v}" for k, v in flags.items()]
+    counters = {"extract_patches": extract_patches,
+                "extract_rescaled_patches": extract_rescaled_patches,
+                "group_norm_act_fwd": fn._launch_fwd,
+                "group_norm_act_bwd": fn._launch_bwd,
+                "density_maps": density_maps}
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    first = _cli(base + ["--steps_to_run", "4", "--save_step_period", "2",
+                         "--validation_step_period", "4"])
+    launches = {name: c.launches for name, c in counters.items()}
+    trial = first["trial_directory"]
+    _finite_metrics("train", first)
+    root = os.path.join(trial, "checkpoints")
+    if sorted(os.listdir(root)) != ["step_2", "step_4"]:
+        raise AssertionError(f"checkpoints {sorted(os.listdir(root))}")
+    log(f"cli train: 4 steps in {time.perf_counter() - t0:.1f} s (set-up "
+        f"included), checkpoints step_2 and step_4; kernel launches "
+        f"{json.dumps(launches)}; {json.dumps(first)}")
+    if (min(launches[k] for k in ("extract_patches", "group_norm_act_fwd",
+                                  "group_norm_act_bwd")) < 1
+            or launches["density_maps"]
+            or launches["extract_rescaled_patches"]):
+        raise AssertionError(f"cli train launched {launches}")
+
+    # Restore step 4 into a fresh experiment.
+    settings = Settings(**apply_preset("crowd_flagship", flags))
+    fresh = CrowdExperiment(settings, device=dev)
+    fresh.prepare_for_evaluation(os.path.join(root, "step_4"))
+    saved = torch.load(os.path.join(root, "step_4", checkpoint.STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    compared = 0
+    for name in ("d", "g", "dnn"):
+        module = getattr(fresh.state, name)
+        adam = getattr(fresh.state, f"{name}_opt").adam.state_dict()["state"]
+        pairs = [(f"{name}.{k}", v, saved[name][k])
+                 for k, v in module.state_dict().items()]
+        pairs += [(f"{name}_opt.{i}.{s}", v, saved[f"{name}_opt"][i][s])
+                  for i, slots in adam.items() for s, v in slots.items()]
+        if len(pairs) != len(saved[name]) + sum(
+                map(len, saved[f"{name}_opt"].values())):
+            raise AssertionError(f"restore: {name} has {len(pairs)} tensors")
+        for key, got, want in pairs:
+            if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"restore: {key} differs from the "
+                                     f"checkpoint")
+        compared += len(pairs)
+    if fresh.state.step != 4:
+        raise AssertionError(f"restored step {fresh.state.step}")
+    mae = fresh.evaluate()["MAE"]
+    if not math.isclose(mae, first["validation"]["MAE"], rel_tol=1e-3):
+        raise AssertionError(f"restored validation MAE {mae}, trained "
+                             f"{first['validation']['MAE']}")
+    fresh.close()
+    del fresh, saved
+    log(f"cli restore: step 4, {compared} tensors bit-equal to the "
+        f"checkpoint; validation MAE {mae:.6g} (trained {first['validation']['MAE']:.6g})")
+
+    resumed = _cli(base + ["--load_model_path", trial, "--steps_to_run", "6"])
+    _finite_metrics("resume", resumed)
+    end = checkpoint.latest_checkpoint(resumed["trial_directory"])
+    if os.path.basename(end) != "step_6":
+        raise AssertionError(f"resume ended at {end}")
+    losses = read_scalars(resumed["trial_directory"])
+    for step in (4, 5):
+        values = {k: v for sub in ("GAN", "DNN")
+                  for k, v in losses[sub].get(step, {}).items()
+                  if not k.startswith("validation/")}
+        if len(values) != 7 or not all(map(math.isfinite, values.values())):
+            raise AssertionError(f"resume step {step}: losses {values}")
+    log(f"cli resume: steps 4 and 5 from {os.path.basename(trial)}, losses "
+        f"finite, ends at step_6; {json.dumps(resumed)}")
+
+    maps_path = os.path.join(logs, "density_maps.npz")
+    evaluated = _cli(base + ["--evaluate_only", "--load_model_path", trial,
+                             "--export_density_maps", maps_path])
+    _finite_metrics("evaluate", evaluated)
+    with np.load(maps_path) as maps:
+        shapes = {k: maps[k].shape for k in maps}
+        finite = all(np.isfinite(maps[k]).all() for k in maps)
+    if shapes != {split: (RAW_SPLITS[split], 96, 128)
+                  for split in ("validation", "test")} or not finite:
+        raise AssertionError(f"exported maps {shapes} (finite: {finite})")
+    log(f"cli evaluate: {json.dumps(evaluated)}; exported {shapes}")
+    return launches
+
+
+def bandwidth_main_path(entry: dict) -> None:
+    """Phase 9: the copy probe's own path, the bandwidth tool's ``main``
+    (every variant at both shapes, each checked exact and timed, one JSON
+    line each). Fills the copy kernel's table ``entry`` with its launches
+    there and, from the tool's lines at [360, 12544, 64], the per_example
+    kernel's and ``copy_``'s ms."""
+    import contextlib
+    import io
+
+    from srgan_tpu_torch.tools import norm_bandwidth_bench as bw
+    bw.copy.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bw.main(["--reps", "20"])
+    if rc != 0:
+        raise AssertionError(f"the bandwidth tool returned {rc}")
+    entry["launches"] = bw.copy.launches
+    records = [json.loads(line) for line in out.getvalue().splitlines()]
+    for record in records:
+        log("bandwidth: " + json.dumps(record))
+        if record["shape"] == list(bw.SHAPES[-1]):
+            if record["variant"] == "per_example":
+                entry["ms"] = record["ms"]
+            elif record["variant"] == "copy_":
+                entry["library_ms"] = record["ms"]
+    if entry["ms"] is None or entry["library_ms"] is None:
+        raise AssertionError(f"the bandwidth tool printed {records}")
 
 
 def main() -> int:
@@ -752,14 +1172,15 @@ def main() -> int:
         return (f"build: {name}.cu -> {os.path.relpath(library, REPO)} in "
                 f"{time.perf_counter() - t0:.2f} s")
 
-    names = ("patches", "fused_norm")
+    names = ("patches", "fused_norm", "density", "copy")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         for line in pool.map(build, names):
             log(line)
 
-    # 2. kernels at the flagship shapes
+    # 2. kernels at the shapes of their paths
     entries = ([check_kernels(dev), check_rescale_kernel(dev)]
-               + check_norm_kernels(dev))
+               + check_norm_kernels(dev)
+               + [check_density_kernel(dev), check_copy_kernel(dev)])
 
     # 3. the gradient penalty's second order through the fused norm
     check_second_order(dev)
@@ -769,17 +1190,26 @@ def main() -> int:
         for impl in ("xla", "pallas"):
             check_small_step(dev, impl, factors)
 
-    # 5. the main paths through their entry point; 6. timed steps
+    # 5. the training paths through their entry point; 6. timed steps
+    logs = os.path.join(REPO, "logs", "chip_smoke")
     for impl, factors in (("xla", ()), ("pallas", ()), ("pallas", RESCALE)):
         settings = Settings(
-            logs_directory=os.path.join(REPO, "logs", "chip_smoke"),
-            steps_to_run=STEPS, summary_step_period=1,
+            logs_directory=logs, steps_to_run=STEPS, summary_step_period=1,
             validation_step_period=VALIDATION_PERIOD, norm_impl=impl,
             crowd_rescale_factors=factors, **FLAGSHIP)
         launches = train_main_path(settings, dev, smi)
-    # The kernel table counts the last run, this slice's path, which
-    # launches every kernel.
-    for entry in entries:
+    # The training kernels' launches are those of the last run, the
+    # rescale sampler's, which launches all four.
+
+    # 7. preprocessing; 8. the command line on its database
+    db_dir, launches["density_maps"] = preprocess_main_path(
+        dev, os.path.join(logs, "database"))
+    cli_main_path(dev, db_dir, os.path.join(logs, "cli"))
+
+    # 9. the bandwidth tool, the copy probe's path
+    bandwidth_main_path(entries[-1])
+
+    for entry in entries[:-1]:
         entry["launches"] = launches[entry["name"]]
     print(json.dumps({"kernels": entries}))
     print(smi)

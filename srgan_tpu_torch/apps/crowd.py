@@ -17,8 +17,8 @@ overlap-averaged density canvas, whose sum is the image's count.
 Validation writes MAE/RMSE/NVE/NAE for both models, G samples and
 (input | truth | prediction) density triptychs.
 
-Not ported yet: the host and window tiers, dataset sharding, kNN/iKNN
-targets, the deeper crowd models and the density-map export.
+Not ported yet: the host and window tiers, dataset sharding, training on
+kNN/iKNN targets and the deeper crowd models.
 """
 
 from __future__ import annotations
@@ -135,20 +135,23 @@ class CrowdExperiment(Experiment):
     def _upload_databases(self) -> None:
         """Place the splits on the device once: images as uint8 (raw
         0..255), density labels [N, H, W, 1] in ``_label_dtype``, and the
-        validation images for grid evaluation."""
+        validation images for grid evaluation. An evaluation-only run
+        places the validation images alone."""
         device = self.device
         self._labeled_index_bound = len(self.labeled_db)
         self._unlabeled_index_bound = len(self.unlabeled_db)
+        self._device_data = {"validation_images": torch.from_numpy(
+            self.validation_db.images).to(device)}
+        if self._evaluation_only:
+            return
         labels = torch.from_numpy(self.labeled_db.density_maps[..., None])
-        self._device_data = {
-            "validation_images": torch.from_numpy(
-                self.validation_db.images).to(device),
+        self._device_data.update({
             "labeled_images": torch.from_numpy(
                 self.labeled_db.images).to(device),
             "labeled_density": labels.to(device).to(self._label_dtype),
             "unlabeled_images": torch.from_numpy(
                 self.unlabeled_db.images).to(device),
-        }
+        })
 
     # -------------------------------------------------------------- models
     def model_setup(self) -> ModelBundle:

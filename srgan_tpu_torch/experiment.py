@@ -1,18 +1,19 @@
-"""The Experiment orchestrator: trial directory, summaries, seeding and
-the training loop.
+"""The Experiment orchestrator: trial directory, summaries, seeding,
+checkpoints and the training loop.
 
 The port of ``srgan_tpu.experiment.Experiment`` (``train``,
-``training_loop``, ``prepare_summary_writers``, ``test``) on one device.
-The loop enqueues steps without waiting for the device and synchronizes
-only on summary and validation steps.
+``training_loop``, ``load_models``/``save_models``,
+``prepare_for_evaluation``, ``test``) on one device. The loop enqueues
+steps without waiting for the device and synchronizes only on summary,
+checkpoint and validation steps.
 
 An experiment runs on the CUDA card unless it is given ``device="cpu"``
 (or another device): without a card, :func:`default_device` raises
 rather than train on the CPU unasked.
 
-Not ported yet (``ROADMAP.md``): checkpoints (save, resume), profiling,
-the mesh, and the apps other than crowd. A setting that asks for one of
-them raises ``NotImplementedError`` (:func:`check_supported`).
+Not ported yet (``ROADMAP.md``): profiling, the mesh, and the apps other
+than crowd. A setting that asks for one of them raises
+``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -23,19 +24,19 @@ from typing import Dict, Optional
 
 import torch
 
+from srgan_tpu_torch import checkpoint
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.train import (ModelBundle, SRGANTrainState,
                                    default_labeled_loss_fn, init_train_state,
                                    make_gan_train_step,
                                    set_float32_precision)
+from srgan_tpu_torch.utils.device import default_device
 from srgan_tpu_torch.utils.seeding import generator_for, seed_all
 from srgan_tpu_torch.utils.summary import SummaryWriter, make_trial_directory
 
 # Settings of features the port does not run yet, with the value that
 # keeps each one off.
 _UNPORTED = {
-    "load_model_path": None,
-    "save_step_period": None,
     "dnn_only": False,
     "profile_step_range": None,
     "debug_nans": False,
@@ -69,16 +70,6 @@ def check_supported(settings: Settings) -> None:
             f"ported to PyTorch yet; the port trains on one device")
 
 
-def default_device() -> torch.device:
-    """The CUDA card; raises without one, so that nothing falls back to
-    the CPU unasked."""
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device (torch.cuda.is_available() is False); pass "
-            "device=\"cpu\" to run on the CPU")
-    return torch.device("cuda")
-
-
 class Experiment:
     """Orchestrates one SR-GAN trial on one device.
 
@@ -104,6 +95,11 @@ class Experiment:
         self._rng: Optional[torch.Generator] = None
         # Offsets every host-side data RNG; nonzero only after a resume.
         self._start_step = 0
+        # True inside prepare_for_evaluation: the input pipeline skips the
+        # training splits, which evaluation never samples.
+        self._evaluation_only = False
+        self._checkpointer: Optional[checkpoint.AsyncStateCheckpointer] = \
+            None
 
     # ------------------------------------------------------------ abstract
     def dataset_setup(self) -> None:
@@ -141,21 +137,67 @@ class Experiment:
         self._rng = generator_for(self.settings.seed, "train", self.device,
                                   start=self._start_step)
 
+    def load_models(self) -> None:
+        """Resume from ``settings.load_model_path`` (a trial directory or
+        one of its ``checkpoints/step_<N>``)."""
+        if self.settings.load_model_path:
+            self.state = checkpoint.restore_state(
+                self.state, self.settings.load_model_path)
+            self._start_step = self.state.step
+
+    def save_models(self) -> str:
+        """Enqueue a checkpoint of the state at its step: blocks only for
+        the device→host copy; the file write overlaps the next steps and
+        is joined in :meth:`close`."""
+        if self._checkpointer is None:
+            self._checkpointer = checkpoint.AsyncStateCheckpointer()
+        return self._checkpointer.save(self.state, self.trial_directory,
+                                       self.state.step)
+
     def close(self) -> None:
-        for writer in (self.dnn_summary_writer, self.gan_summary_writer):
-            if writer is not None:
-                writer.close()
+        """Wait for pending checkpoint writes and close the summary
+        writers."""
+        try:
+            if self._checkpointer is not None:
+                self._checkpointer.close()
+        finally:
+            self._checkpointer = None
+            for writer in (self.dnn_summary_writer, self.gan_summary_writer):
+                if writer is not None:
+                    writer.close()
+
+    def prepare_for_evaluation(self, trial_directory: str
+                               ) -> SRGANTrainState:
+        """Everything needed to evaluate a saved trial without training:
+        data, models and the restored state. ``trial_directory`` is the
+        checkpoint source, as ``settings.load_model_path`` is; summaries
+        go to its ``eval_GAN``/``eval_DNN``."""
+        check_supported(self.settings)
+        set_float32_precision()
+        self._evaluation_only = True
+        self.trial_directory = trial_directory
+        period = self.settings.summary_step_period
+        self.dnn_summary_writer = SummaryWriter(
+            os.path.join(trial_directory, "eval_DNN"), period)
+        self.gan_summary_writer = SummaryWriter(
+            os.path.join(trial_directory, "eval_GAN"), period)
+        self.dataset_setup()
+        self.models = self.model_setup()
+        self.state = init_train_state(self.settings, self.models)
+        self.prepare_train_step()
+        self.state = checkpoint.restore_state(self.state, trial_directory)
+        return self.state
 
     # ------------------------------------------------------------- training
     def train(self) -> SRGANTrainState:
-        """Full trial: trial directory, summaries, data, models, loop.
-
-        The port has no checkpoints yet: ``train()`` saves nothing, and
-        the returned state lives only in this process.
-        """
+        """Full trial: trial directory, summaries, data, models, the
+        restore of ``load_model_path``, the loop and a last checkpoint."""
         settings = self.settings
         check_supported(settings)
         set_float32_precision()
+        # A prepare_for_evaluation() before must not leak its skipped
+        # training splits into a training run.
+        self._evaluation_only = False
         try:
             self.trial_directory = make_trial_directory(settings)
             self.prepare_summary_writers()
@@ -163,8 +205,12 @@ class Experiment:
             self.dataset_setup()
             self.models = self.model_setup()
             self.state = init_train_state(settings, self.models)
+            # Restore before the input pipeline is built: the step stream
+            # and the patch draws start at the restored step.
+            self.load_models()
             self.prepare_train_step()
             self.training_loop()
+            self.save_models()
             return self.state
         finally:
             self.close()
@@ -205,6 +251,10 @@ class Experiment:
                     last_summary_time = now
                     last_summary_step = step
                 step += 1
+                # step now equals state.step, which names the checkpoint.
+                if (settings.save_step_period
+                        and step % settings.save_step_period == 0):
+                    self.save_models()
                 if (settings.validation_step_period
                         and step % settings.validation_step_period == 0):
                     self.validation_summaries(

@@ -7,14 +7,17 @@ machine with the card:
 (``--noconftest``: the suite's conftest configures JAX.)
 """
 
+import numpy as np
 import pytest
 import torch
 
 from srgan_tpu_torch.ops import fused_norm as fn
+from srgan_tpu_torch.ops.density import density_maps, density_maps_plain
 from srgan_tpu_torch.ops.patches import (extract_patches,
                                          extract_patches_plain,
                                          extract_rescaled_patches,
                                          extract_rescaled_patches_plain)
+from srgan_tpu_torch.tools import norm_bandwidth_bench as bandwidth
 
 N, H, W, P, B = 3, 80, 96, 32, 6
 
@@ -204,3 +207,66 @@ def test_fused_norm_launchers_reject_what_the_kernels_do_not_take():
                        32, 0.2)
     with pytest.raises(ValueError, match="groups"):
         fn._launch_fwd(x, scale, bias, 48, 0.2, 1e-6)
+
+
+# The density kernel against its plain version: (B, N, H, W, σ). Heads
+# over the canvas widened by 16 px on each side; slots past each count
+# hold NaN, which neither may read. Tolerance 1e-6 + 1e-4·|want| per
+# element (the kernel's __expf and sum order against torch.exp).
+DENSITY_CASES = [(2, 16, 32, 48, 2.0), (3, 300, 61, 77, 4.0),
+                 (1, 0, 16, 16, 2.0), (2, 700, 40, 600, 8.0)]
+
+
+@pytest.mark.parametrize("b,n,h,w,sigma", DENSITY_CASES)
+def test_density_kernel_equals_plain(b, n, h, w, sigma):
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(n + b)
+    heads = np.stack([rng.uniform(-16, h + 16, (b, n)),
+                      rng.uniform(-16, w + 16, (b, n))], -1).astype(np.float32)
+    counts = rng.integers(0, n + 1, b).astype(np.int32)
+    for i, c in enumerate(counts):
+        heads[i, c:] = np.nan
+    heads_t = torch.from_numpy(heads).to(dev)
+    counts_t = torch.from_numpy(counts).to(dev)
+    before = density_maps.launches
+    got = density_maps(heads_t, counts_t, sigma, height=h, width=w)
+    torch.cuda.synchronize()
+    assert density_maps.launches == before + 1
+    want = density_maps_plain(heads_t, counts_t, sigma, height=h, width=w)
+    assert got.shape == (b, h, w) and bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= 1e-6 + 1e-4 * want.abs()).all())
+
+
+def test_density_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = torch.device("cuda")
+    heads = torch.zeros((2, 4, 2), device=dev)
+    counts = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        density_maps(heads, counts.long(), 2.0, height=8, width=8)
+    with pytest.raises(ValueError, match="float32"):
+        density_maps(heads.double(), counts, 2.0, height=8, width=8)
+
+
+@pytest.mark.parametrize("layout,rows", [("per_example", 0),
+                                         ("batch_strided", 64),
+                                         ("batch_strided", 96)])
+def test_copy_kernel_is_exact(layout, rows):
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((3, 192, 64), generator=gen, device=dev).to(torch.bfloat16)
+    before = bandwidth.copy.launches
+    got = bandwidth.copy(x, layout, rows)
+    torch.cuda.synchronize()
+    assert bandwidth.copy.launches == before + 1
+    assert torch.equal(got, x)
+    assert torch.equal(bandwidth.copy_plain(x, layout, rows), x)
+
+
+def test_copy_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = torch.device("cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        bandwidth.copy(torch.zeros((2, 3, 3), dtype=torch.bfloat16,
+                                   device=dev), "per_example")
+    with pytest.raises(ValueError, match="divide"):
+        bandwidth.copy(torch.zeros((2, 8, 64), dtype=torch.bfloat16,
+                                   device=dev), "batch_strided", 5)
