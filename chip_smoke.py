@@ -17,8 +17,10 @@ Phases, each of which fails the run if it fails:
              then the fused GroupNorm + activation forward and backward
              kernels against their plain versions at every norm shape of
              the flagship step, in bfloat16 (tolerances at
-             ``check_norm_kernels``); the density kernel against its plain
-             version at 16 maps of 4096 slots and at one map of 12 865
+             ``check_norm_kernels``), each shape's tiling and its
+             clusters on the card at once printed, the times weighted by
+             each shape's launches in a step; the density kernel
+             against its plain version at 16 maps of 4096 slots and at one map of 12 865
              heads (384×512, σ = 8; tolerance at ``_check_density``); the
              copy probe in both launch layouts at both of the bandwidth
              tool's shapes, bit for bit; all timed with CUDA events (the
@@ -102,27 +104,25 @@ FLAGSHIP = dict(  # bench.py's flagship crowd configuration
     # The test split is not read by training; 2 images keep set-up short.
     test_dataset_size=2, crowd_image_height=384, crowd_image_width=512,
     seed=0, compute_dtype="bfloat16")
-# Every GroupNorm of the flagship step as (B, H·W, C, slope), 32 groups
-# each: D over the 3B batch, D and the DNN over B (the D stages are
-# 112²×64, 56²×128 and twice 56²×256, slope 0.2), and G over B (7²×1024
-# up to 112²×64, ReLU).
-NORM_SHAPES = [(360, 112 * 112, 64, 0.2), (360, 56 * 56, 128, 0.2),
-               (360, 56 * 56, 256, 0.2), (120, 112 * 112, 64, 0.2),
-               (120, 56 * 56, 128, 0.2), (120, 56 * 56, 256, 0.2),
-               (120, 7 * 7, 1024, 0.0), (120, 14 * 14, 512, 0.0),
-               (120, 28 * 28, 256, 0.0), (120, 56 * 56, 128, 0.0),
-               (120, 112 * 112, 64, 0.0)]
-# Fused norm kernel launches in one flagship step (train.py, a generator
-# update every step; G has 5 norms, D and the DNN 4 each):
-#   forward:  G(z_d) 5 + D(3B) 4 + D(interpolates) 4 + G(z_g) 5
-#             + D(unlabeled) 4 + D(fake) 4 + DNN 4 = 30;
-#   backward: the penalty's inner grad through D(interpolates) 4; the D
-#             update's grad through D(3B) 4 and, from the penalty,
-#             through D(interpolates) 4; the G update through D(fake) 4
-#             and G 5; the DNN 4 = 25. The penalty's outer grad through
-#             the backward kernel's own backward is composite and
-#             launches none.
+# Every GroupNorm of the flagship step as (B, H·W, C, slope, forward
+# launches, backward launches), 32 groups each: D over the 3B batch, D and
+# the DNN over B (the D stages are 112²×64, 56²×128 and twice 56²×256,
+# slope 0.2), and G over B (7²×1024 up to 112²×64, ReLU). The launches
+# per step follow the counts below: at B = 360 the forward and backward
+# of D(3B); at B = 120 the forwards of D(interpolates), D(unlabeled),
+# D(fake) and the DNN and the backwards through D(interpolates) twice,
+# D(fake) and the DNN; G's forward twice and backward once.
+NORM_SHAPES = [(360, 112 * 112, 64, 0.2, 1, 1), (360, 56 * 56, 128, 0.2, 1, 1),
+               (360, 56 * 56, 256, 0.2, 2, 2), (120, 112 * 112, 64, 0.2, 4, 4),
+               (120, 56 * 56, 128, 0.2, 4, 4), (120, 56 * 56, 256, 0.2, 8, 8),
+               (120, 7 * 7, 1024, 0.0, 2, 1), (120, 14 * 14, 512, 0.0, 2, 1),
+               (120, 28 * 28, 256, 0.0, 2, 1), (120, 56 * 56, 128, 0.0, 2, 1),
+               (120, 112 * 112, 64, 0.0, 2, 1)]
 NORM_LAUNCHES_PER_STEP = {"fwd": 30, "bwd": 25}
+if {kind: sum(shape[4 + i] for shape in NORM_SHAPES)
+        for i, kind in enumerate(("fwd", "bwd"))} != NORM_LAUNCHES_PER_STEP:
+    raise AssertionError("NORM_SHAPES' launches do not sum to "
+                         "NORM_LAUNCHES_PER_STEP")
 # Kernel launches in one validation pass at the flagship (crowd.py
 # validation_summaries): G's sample grid of 4 (5 norms); per model, D and
 # then the DNN, the maps of 16 validation images in chunks of 8
@@ -347,7 +347,9 @@ def check_norm_kernels(dev):
     """Phase 2, fused norm: the forward and backward kernels against their
     plain versions at every norm shape of the flagship step, bfloat16.
     Returns the two kernel table entries (launches filled in by the
-    training phase); their times are at the first, largest shape.
+    training phase); their ``ms`` are at the first, largest shape, and
+    ``step_ms`` / ``step_bound_ms`` are the launch-weighted sums over the
+    step's shapes (``NORM_SHAPES``) of the kernel's time and of its bound.
 
     Tolerances. The kernel and the plain version compute the same float32
     formulas but sum in different orders, so:
@@ -363,13 +365,12 @@ def check_norm_kernels(dev):
     The backward is held to the plain backward on the kernel's own mean
     and rstd, so that each check sees one kernel.
     """
-    from srgan_tpu_torch.ops.fused_norm import (_launch_bwd, _launch_fwd,
-                                                group_norm_act_bwd_plain,
-                                                group_norm_act_fwd_plain)
+    from srgan_tpu_torch.ops import fused_norm as fn
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {"fwd": 0.0, "bwd": 0.0}
     times = {}
-    for b, hw, c, slope in NORM_SHAPES:
+    step = {kind: {"ms": 0.0, "bound_ms": 0.0} for kind in ("fwd", "bwd")}
+    for b, hw, c, slope, *per_step in NORM_SHAPES:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device=dev)
         x = (randn(b, hw, c) + 0.5).to(torch.bfloat16)
@@ -377,9 +378,9 @@ def check_norm_kernels(dev):
         scale = 1.0 + 0.1 * randn(c)
         bias = 0.1 * randn(c)
         fwd_args = (x, scale, bias, 32, slope, 1e-6)
-        y, mean, rstd = _launch_fwd(*fwd_args)
+        y, mean, rstd = fn._launch_fwd(*fwd_args)
         torch.cuda.synchronize()
-        want_y, want_mean, want_rstd = group_norm_act_fwd_plain(*fwd_args)
+        want_y, want_mean, want_rstd = fn.group_norm_act_fwd_plain(*fwd_args)
         if y.dtype != torch.bfloat16 or y.shape != x.shape:
             raise AssertionError(f"forward kernel returned {y.dtype} "
                                  f"{list(y.shape)}")
@@ -389,9 +390,9 @@ def check_norm_kernels(dev):
         torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=0)
         torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
         bwd_args = (x, scale, bias, mean, rstd, dy, 32, slope)
-        dx, dscale, dbias = _launch_bwd(*bwd_args)
+        dx, dscale, dbias = fn._launch_bwd(*bwd_args)
         torch.cuda.synchronize()
-        want_dx, want_dscale, want_dbias = group_norm_act_bwd_plain(
+        want_dx, want_dscale, want_dbias = fn.group_norm_act_bwd_plain(
             *bwd_args)
         err_dx = _assert_within(
             "dx", dx, want_dx, 2 ** -7 * want_dx.float().abs()
@@ -403,32 +404,41 @@ def check_norm_kernels(dev):
         worst["fwd"] = max(worst["fwd"], err_y)
         worst["bwd"] = max(worst["bwd"], err_dx)
         del y, want_y, dx, want_dx
-        pairs = {"fwd": (lambda: group_norm_act_fwd_plain(*fwd_args),
-                         lambda: _launch_fwd(*fwd_args)),
-                 "bwd": (lambda: group_norm_act_bwd_plain(*bwd_args),
-                         lambda: _launch_bwd(*bwd_args))}
+        pairs = {"fwd": (lambda: fn.group_norm_act_fwd_plain(*fwd_args),
+                         lambda: fn._launch_fwd(*fwd_args)),
+                 "bwd": (lambda: fn.group_norm_act_bwd_plain(*bwd_args),
+                         lambda: fn._launch_bwd(*bwd_args))}
         shape = f"[{b}, {hw}, {c}] bf16 slope {slope}"
-        for kind, (plain, kernel) in pairs.items():
+        # Least bytes: x (and dy) read once, y (dx) written once, the
+        # float32 per-channel and per-group vectors; operations about 8
+        # (forward) and 15 (backward) per element.
+        vectors = 4 * (2 * c + 2 * b * 32)
+        xb = x.numel() * x.element_size()
+        bound = {"fwd": least_ms(2 * xb + vectors, 8 * x.numel()),
+                 "bwd": least_ms(3 * xb + vectors + 8 * c, 15 * x.numel())}
+        for (kind, (plain, kernel)), launches in zip(pairs.items(),
+                                                     per_step):
             t_kernel, t_plain = paired_ms(plain, kernel, 10)
-            # Bytes of the two-pass kernels: x (and dy) read twice, y (dx)
-            # written once.
-            moved = x.numel() * x.element_size() * (3 if kind == "fwd"
-                                                    else 5)
+            tiling = fn.norm_tiling(b, hw, c, x.dtype, kind)
+            # The bytes the launch moved: one pass, plus any streamed rows
+            # read again.
+            moved = fn.norm_traffic_bytes(b, hw, c, x.dtype, kind, tiling)
             log(f"kernel group_norm_act {kind} {shape}: max|err| "
                 f"{err_y if kind == 'fwd' else err_dx:g}, kernel "
-                f"{t_kernel:.4f} ms ({moved / t_kernel / 1e6:.1f} GB/s), "
-                f"plain {t_plain:.4f} ms")
+                f"{t_kernel:.4f} ms ({moved / t_kernel / 1e6:.1f} GB/s of "
+                f"{moved / xb:g} units moved), plain {t_plain:.4f} ms, "
+                f"bound {bound[kind][0]:.4f} ms; tiling cluster "
+                f"{tiling.cluster}, {tiling.rows_per_block} rows a block, "
+                f"{tiling.resident_rows} resident, {tiling.smem_bytes} B "
+                f"shared memory, max active clusters "
+                f"{fn.max_active_clusters(x.dtype, kind, tiling)}; "
+                f"{launches} launches a step")
             times.setdefault(kind, (t_kernel, t_plain))
+            step[kind]["ms"] += launches * t_kernel
+            step[kind]["bound_ms"] += launches * bound[kind][0]
         if "library" not in times:  # the first, largest shape
             times["library"] = library_norm_ms(x, scale, bias, dy)
-            # Least bytes: x (and dy) read once, y (dx) written once, the
-            # float32 per-channel and per-group vectors; operations about
-            # 8 (forward) and 15 (backward) per element.
-            vectors = 4 * (2 * c + 2 * b * 32)
-            xb = x.numel() * x.element_size()
-            times["bound"] = {
-                "fwd": least_ms(2 * xb + vectors, 8 * x.numel()),
-                "bwd": least_ms(3 * xb + vectors + 8 * c, 15 * x.numel())}
+            times["bound"] = bound
             log(f"library [{b}, {hw}, {c}] bf16, F.group_norm (no "
                 f"activation) on an NCHW copy: forward "
                 f"{times['library']['fwd']:.4f} ms, autograd backward "
@@ -439,6 +449,11 @@ def check_norm_kernels(dev):
         torch.cuda.empty_cache()
     log("kernel group_norm_act: mean/rstd within rtol 1e-5, dscale/dbias "
         "within 1e-4 of their largest, at every shape")
+    for kind, t in step.items():
+        log(f"kernel group_norm_act {kind}, the flagship step's "
+            f"{NORM_LAUNCHES_PER_STEP[kind]} launches: {t['ms']:.4f} ms a "
+            f"step, bound {t['bound_ms']:.4f} ms, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
     return [{"name": f"group_norm_act_{kind}", "route": "cuda",
              "source": "srgan_tpu_torch/csrc/fused_norm.cu",
              "replaces": f"srgan_tpu/ops/fused_norm.py:{line}",
@@ -446,7 +461,9 @@ def check_norm_kernels(dev):
              "ms": times[kind][0], "plain_ms": times[kind][1],
              "bound_ms": times["bound"][kind][0],
              "bound_by": times["bound"][kind][1],
-             "library_ms": times["library"][kind]}
+             "library_ms": times["library"][kind],
+             "step_ms": step[kind]["ms"],
+             "step_bound_ms": step[kind]["bound_ms"]}
             for kind, line in (("fwd", 178), ("bwd", 226))]
 
 

@@ -3,9 +3,10 @@ it with ctypes.
 
 Each source compiles, at first use, into a shared library with a plain C
 interface under ``srgan_tpu_torch/build/``. The file name carries a hash
-of the source and of the compiler flags, so an edited source builds anew
-and a stale library is never loaded. Nothing here runs at import time:
-the machines without ``nvcc`` import the package all the same.
+of the source, of the headers beside it and of the compiler flags, so an
+edited source or header builds anew and a stale library is never loaded.
+Nothing here runs at import time: the machines without ``nvcc`` import
+the package all the same.
 """
 
 from __future__ import annotations
@@ -42,9 +43,13 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Where the library of ``csrc/<name>.cu`` lives for its current
-    source and flags."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    source, the headers of ``csrc/`` (``*.cuh``, any of which it may
+    include) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for source in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, source), "rb") as f:
+            digest.update(source.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -10,8 +10,10 @@ The port of ``srgan_tpu.ops.fused_norm`` (``Settings.norm_impl="pallas"``):
   The CPU tests use them; ``chip_smoke.py`` holds the kernels against them
   on the card.
 * :func:`_launch_fwd` and :func:`_launch_bwd` — the hand-written CUDA
-  kernels of ``csrc/fused_norm.cu`` (built at first use). Each launch
-  adds one to the launcher's ``launches``.
+  kernels of ``csrc/fused_norm.cu`` (built at first use): a thread-block
+  cluster per example holds its rows in shared memory, so x (and dy) are
+  read from device memory once. :func:`norm_tiling` chooses the cluster
+  and what it holds. Each launch adds one to the launcher's ``launches``.
 * Two ``torch.autograd.Function``s, the ``custom_vjp``-over-``custom_jvp``
   structure of JAX's ``_make_gn_act``: :class:`_GroupNormActFwd` runs the
   forward kernel, and its backward is :class:`_GroupNormActBwd`, which
@@ -35,7 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -45,12 +47,27 @@ from srgan_tpu_torch.ops import _build
 Tensor = torch.Tensor
 
 _DTYPE_CODES = {torch.float32: 1, torch.bfloat16: 2}
-# Elements of one example that one block of a pass takes (a slab of
-# rows); the kernels take any slab size, this one keeps the card busy at
-# every flagship shape with small partial sums.
-_SLAB_ELEMENTS = 16384
-# The fold kernels hold 2·C float32 sums in 48 KB of shared memory.
+# The kernels hold 2·C float32 partial sums in shared memory.
 _MAX_CHANNELS = 6144
+# The H100 SXM's SMs. A constant, not read from the card, so that the
+# tiling stays a pure function of shape and dtype; on a card with fewer
+# SMs a small batch's cluster may grow past one wave.
+_SMS = 132
+# The shared memory a block of the kernels takes at most: all a block may
+# have (227 KB), one block per SM. Its layout (csrc/fused_norm.cu): the
+# chunks' mbarriers, three [2, C] float32 vectors, and the row-lane
+# scratch of 512 threads × 8 floats, then the resident rows.
+_SMEM_BUDGET = 232448
+_BARRIER_BYTES = 128
+_SCRATCH_BYTES = 512 * 8 * 4
+# Clusters of up to 16 blocks (above 8 a non-portable size); see
+# norm_tiling. A small batch's cluster grows to fill the card only while
+# its blocks keep _MIN_ROWS rows each.
+_CLUSTER_LIMIT = 16
+_MIN_ROWS = 16
+# The backward folds its blocks' per-channel sums into dscale/dbias
+# through this many rows of partial sums (kFoldRuns in csrc/fused_norm.cu).
+_FOLD_RUNS = 32
 
 
 # ---------------------------------------------------------------------------
@@ -121,20 +138,101 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("fused_norm")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.srgan_group_norm_act_fwd.argtypes = (
-        [ptr] * 7 + [i32] * 7 + [f32, f32, ptr])
+        [ptr] * 6 + [i32] * 9 + [f32, f32, ptr])
     lib.srgan_group_norm_act_fwd.restype = i32
     lib.srgan_group_norm_act_bwd.argtypes = (
-        [ptr] * 12 + [i32] * 7 + [f32, ptr])
+        [ptr] * 10 + [i32] * 9 + [f32, ptr])
     lib.srgan_group_norm_act_bwd.restype = i32
+    lib.srgan_group_norm_act_max_clusters.argtypes = [i32] * 4 + [ptr]
+    lib.srgan_group_norm_act_max_clusters.restype = i32
     lib.srgan_cuda_error_string.argtypes = [i32]
     lib.srgan_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _slabs(hw: int, c: int) -> Tuple[int, int]:
-    """(rows per slab, slabs) for an example of ``hw`` rows of ``c``."""
-    rows = min(hw, -(-_SLAB_ELEMENTS // c))
-    return rows, -(-hw // rows)
+class NormTiling(NamedTuple):
+    """How the kernels cut an example of ``hw`` rows: a cluster of
+    ``cluster`` blocks, each owning ``rows_per_block`` rows (the last
+    block may own fewer, none owns none), of which the first
+    ``resident_rows`` are held in shared memory; ``smem_bytes`` of
+    dynamic shared memory a block."""
+    cluster: int
+    rows_per_block: int
+    resident_rows: int
+    smem_bytes: int
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _smem_bytes(c: int, resident: int, elem: int, tensors: int) -> int:
+    """A block's shared memory: the kernels' fixed layout, then
+    ``tensors`` runs of ``resident`` rows (``fixed_smem`` and ``Smem`` in
+    csrc/fused_norm.cu)."""
+    fixed = _BARRIER_BYTES + 3 * _align16(8 * c) + _SCRATCH_BYTES
+    return fixed + tensors * _align16(resident * c * elem)
+
+
+@functools.cache
+def norm_tiling(b: int, hw: int, c: int, dtype: torch.dtype,
+                direction: str) -> NormTiling:
+    """The tiling of the forward (``direction="fwd"``, x resident) or
+    backward (``"bwd"``, x and dy resident) kernel for x [b, hw, c].
+
+    The cluster is the smallest power of two (up to 16) whose blocks hold
+    the example's rows within ``_SMEM_BUDGET`` bytes of shared memory
+    each. Rows a cluster of 16 cannot hold are streamed (read twice). A
+    cluster also grows while twice its blocks still fit the card's SMs in
+    one wave and keep ``_MIN_ROWS`` rows each. A pure function of shape
+    and dtype: the same shape always takes the same tiling.
+    """
+    if direction not in ("fwd", "bwd"):
+        raise ValueError(f"direction is 'fwd' or 'bwd', got {direction!r}")
+    elem = dtype.itemsize
+    tensors = 1 if direction == "fwd" else 2
+    fits = ((_SMEM_BUDGET - _smem_bytes(c, 0, elem, tensors))
+            // (tensors * c * elem))
+    cluster = 1
+    while cluster < _CLUSTER_LIMIT and (
+            -(-hw // cluster) > fits
+            or (2 * b * cluster <= _SMS and hw // (2 * cluster) >= _MIN_ROWS)):
+        cluster *= 2
+    # No block without rows: halve the cluster until the last one has some.
+    while cluster > 1 and (cluster - 1) * -(-hw // cluster) >= hw:
+        cluster //= 2
+    rows = -(-hw // cluster)
+    resident = max(0, min(rows, fits))
+    return NormTiling(cluster, rows, resident,
+                      _smem_bytes(c, resident, elem, tensors))
+
+
+def norm_traffic_bytes(b: int, hw: int, c: int, dtype: torch.dtype,
+                       direction: str, tiling: NormTiling) -> int:
+    """Bytes of x, dy and the output that a launch at ``tiling`` moves
+    through device memory: x (and dy) read once and the output written
+    once, plus the streamed rows read again."""
+    elem = dtype.itemsize
+    tensors = 1 if direction == "fwd" else 2
+    rows = tiling.rows_per_block
+    reread = sum(max(0, min(rows, hw - q * rows) - tiling.resident_rows)
+                 for q in range(tiling.cluster))
+    return b * c * elem * (hw * (tensors + 1) + reread * tensors)
+
+
+@functools.cache
+def max_active_clusters(dtype: torch.dtype, direction: str,
+                        tiling: NormTiling) -> int:
+    """How many clusters of the kernel at ``tiling`` the card runs at once
+    (``cudaOccupancyMaxActiveClusters``). It asks about the kernel of
+    16-byte vectors, which every flagship shape takes; a launch whose rows
+    are not whole vectors runs the element kernel, whose registers may
+    differ."""
+    out = ctypes.c_int(0)
+    _raise_on(_library().srgan_group_norm_act_max_clusters(
+        _DTYPE_CODES[dtype], int(direction == "bwd"), tiling.cluster,
+        tiling.smem_bytes, ctypes.addressof(out)), "occupancy query")
+    return out.value
 
 
 def _check_launch(x: Tensor, groups: int, **others: Tensor) -> None:
@@ -174,25 +272,30 @@ def _raise_on(code: int, what: str) -> None:
                            f"{_library().srgan_cuda_error_string(code).decode()}")
 
 
+def _tiling(x: Tensor, direction: str, tiling: Optional[NormTiling]
+            ) -> NormTiling:
+    b, hw, c = x.shape
+    return tiling or norm_tiling(b, hw, c, x.dtype, direction)
+
+
 def _launch_fwd(x: Tensor, scale: Tensor, bias: Tensor, groups: int,
-                negative_slope: float, eps: float
+                negative_slope: float, eps: float,
+                tiling: Optional[NormTiling] = None
                 ) -> Tuple[Tensor, Tensor, Tensor]:
     """The forward kernel: (y, mean, rstd) as the plain version returns
-    them."""
+    them. ``tiling`` defaults to :func:`norm_tiling`'s."""
     _check_launch(x, groups, scale=scale, bias=bias)
     b, hw, c = x.shape
-    rows, slabs = _slabs(hw, c)
+    t = _tiling(x, "fwd", tiling)
     f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     mean = torch.empty((b, groups), **f32)
     rstd = torch.empty((b, groups), **f32)
-    partials = torch.empty((b, slabs, 2, c), **f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _raise_on(_library().srgan_group_norm_act_fwd(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        mean.data_ptr(), rstd.data_ptr(), partials.data_ptr(),
-        _DTYPE_CODES[x.dtype], b, hw, c, groups, rows, slabs,
-        negative_slope, eps, stream), "forward")
+        mean.data_ptr(), rstd.data_ptr(), _DTYPE_CODES[x.dtype], b, hw, c,
+        groups, *t, negative_slope, eps, stream), "forward")
     _launch_fwd.launches += 1
     return y, mean, rstd
 
@@ -201,28 +304,27 @@ _launch_fwd.launches = 0
 
 
 def _launch_bwd(x: Tensor, scale: Tensor, bias: Tensor, mean: Tensor,
-                rstd: Tensor, dy: Tensor, groups: int, negative_slope: float
+                rstd: Tensor, dy: Tensor, groups: int, negative_slope: float,
+                tiling: Optional[NormTiling] = None
                 ) -> Tuple[Tensor, Tensor, Tensor]:
     """The backward kernel: (dx, dscale, dbias) as the plain version
-    returns them."""
+    returns them. ``tiling`` defaults to :func:`norm_tiling`'s."""
     _check_launch(x, groups, scale=scale, bias=bias, mean=mean, rstd=rstd,
                   dy=dy)
     b, hw, c = x.shape
-    rows, slabs = _slabs(hw, c)
+    t = _tiling(x, "bwd", tiling)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dscale = torch.empty((c,), **f32)
     dbias = torch.empty((c,), **f32)
-    partials = torch.empty((b, slabs, 2, c), **f32)
-    sums = torch.empty((b, 2, c), **f32)
-    means = torch.empty((b, 2, groups), **f32)
+    # Each block's per-channel sums, then the fold's partial sums.
+    sums = torch.empty((b * t.cluster + _FOLD_RUNS, 2, c), **f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _raise_on(_library().srgan_group_norm_act_bwd(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-        dbias.data_ptr(), partials.data_ptr(), sums.data_ptr(),
-        means.data_ptr(), _DTYPE_CODES[x.dtype], b, hw, c, groups, rows,
-        slabs, negative_slope, stream), "backward")
+        dbias.data_ptr(), sums.data_ptr(), _DTYPE_CODES[x.dtype], b, hw, c,
+        groups, *t, negative_slope, stream), "backward")
     _launch_bwd.launches += 1
     return dx, dscale, dbias
 

@@ -165,6 +165,77 @@ def test_fused_norm_kernels_equal_plain(shape, groups, slope, dtype):
     _within(dbias, want[2], 1e-5)
 
 
+# Shapes beside NORM_CASES that take the kernels' other routes: a cluster
+# of 16 blocks fully resident (bfloat16), float32 whose backward streams
+# 366 of each block's 784 rows, an explicit tiling whose forward and
+# backward stream 1268 of each block's 1568 rows, and channels whose rows
+# are not a whole number of 16-byte vectors (C·sizeof(dtype) = 24 or 12
+# bytes: element loads, no bulk copies).
+ROUTE_CASES = [((2, 12544, 64), 32, 0.2, None),
+               ((2, 12544, 64), 32, 0.2, fn.NormTiling(8, 1568, 300, 0)),
+               ((3, 40, 6), 3, 0.2, None)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups,slope,tiling", ROUTE_CASES)
+def test_fused_norm_kernel_routes_equal_plain(shape, groups, slope, tiling,
+                                              dtype):
+    x, scale, bias, dy = _norm_inputs(shape, dtype)
+    rel = 1e-5 if dtype == torch.float32 else 2 ** -7
+    tilings = {}
+    for kind in ("fwd", "bwd"):
+        t = tiling or fn.norm_tiling(*shape, dtype, kind)
+        if tiling is not None:  # the layout's bytes at this residency
+            elem = x.element_size()
+            t = t._replace(smem_bytes=fn._smem_bytes(
+                shape[2], t.resident_rows, elem, 1 if kind == "fwd" else 2))
+        tilings[kind] = t
+    if shape == (2, 12544, 64) and tiling is None:
+        assert tilings["fwd"].cluster > 1
+        streams = dtype == torch.float32
+        assert (tilings["bwd"].resident_rows
+                < tilings["bwd"].rows_per_block) == streams
+    y, mean, rstd = fn._launch_fwd(x, scale, bias, groups, slope, 1e-6,
+                                   tiling=tilings["fwd"])
+    dx, dscale, dbias = fn._launch_bwd(x, scale, bias, mean, rstd, dy,
+                                       groups, slope, tiling=tilings["bwd"])
+    torch.cuda.synchronize()
+    want_y, want_mean, want_rstd = fn.group_norm_act_fwd_plain(
+        x, scale, bias, groups, slope, 1e-6)
+    _within(y, want_y, rel)
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    want = fn.group_norm_act_bwd_plain(x, scale, bias, mean, rstd, dy,
+                                       groups, slope)
+    _within(dx, want[0], rel)
+    _within(dscale, want[1], 1e-5)
+    _within(dbias, want[2], 1e-5)
+
+
+@pytest.mark.parametrize("shape,groups", [((3, 3136, 256), 32),
+                                          ((2, 12544, 64), 32)])
+def test_fused_norm_kernels_repeat_bit_for_bit(shape, groups):
+    """No atomics: two launches on the same inputs give the same bits,
+    bfloat16 and float32 (whose backward streams at the second shape)."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, scale, bias, dy = _norm_inputs(shape, dtype)
+        first = fn._launch_fwd(x, scale, bias, groups, 0.2, 1e-6)
+        again = fn._launch_fwd(x, scale, bias, groups, 0.2, 1e-6)
+        grads = [fn._launch_bwd(x, scale, bias, first[1], first[2], dy,
+                                groups, 0.2) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in list(zip(first, again)) + list(zip(*grads)):
+            assert torch.equal(a, b)
+
+
+def test_fused_norm_occupancy_query():
+    """Every tiling the flagship's largest shapes take fits the card at
+    least once."""
+    for kind in ("fwd", "bwd"):
+        t = fn.norm_tiling(360, 12544, 64, torch.bfloat16, kind)
+        assert fn.max_active_clusters(torch.bfloat16, kind, t) >= 1
+
+
 def test_fused_norm_second_order_through_the_kernels():
     """The gradient penalty's ∂/∂scale through the kernels (and the
     composite second order) equals autograd through the plain forward,
@@ -207,6 +278,13 @@ def test_fused_norm_launchers_reject_what_the_kernels_do_not_take():
                        32, 0.2)
     with pytest.raises(ValueError, match="groups"):
         fn._launch_fwd(x, scale, bias, 48, 0.2, 1e-6)
+    # A tiling the kernel does not take: too little shared memory for its
+    # resident rows, rows that leave a block empty.
+    t = fn.norm_tiling(2, 16, 64, torch.float32, "fwd")
+    for bad in (t._replace(smem_bytes=t.smem_bytes - 16),
+                t._replace(cluster=4, rows_per_block=8)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            fn._launch_fwd(x, scale, bias, 32, 0.2, 1e-6, tiling=bad)
 
 
 # The density kernel against its plain version: (B, N, H, W, σ). Heads

@@ -248,3 +248,79 @@ def test_norm_impl_setting():
                       fn.FusedGroupNormAct)
     with pytest.raises(ValueError, match="norm_impl"):
         group_norm(64, torch.float32, "fast")
+
+
+# ---------------------------------------------------------------------------
+# The kernels' tiling, worked out in Python (the kernels run only on the
+# card; csrc/fused_norm.cu checks what it is given).
+# ---------------------------------------------------------------------------
+
+# The GroupNorms of the flagship step as [B, HW, C] (chip_smoke.py's
+# NORM_SHAPES): D over 3B and over B, G over B.
+FLAGSHIP_NORM_SHAPES = [(360, 12544, 64), (360, 3136, 128), (360, 3136, 256),
+                        (120, 12544, 64), (120, 3136, 128), (120, 3136, 256),
+                        (120, 49, 1024), (120, 196, 512), (120, 784, 256),
+                        (120, 3136, 128), (120, 12544, 64)]
+# tests/test_torch_port_cuda.py's NORM_CASES, as [B, HW, C].
+CUDA_NORM_CASES = [(3, 64, 64), (2, 49, 1024), (4, 100, 8), (2, 300, 384)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLAGSHIP_NORM_SHAPES + CUDA_NORM_CASES)
+def test_norm_tiling_covers_every_row_once(shape, dtype):
+    b, hw, c = shape
+    elem = torch.empty((), dtype=dtype).element_size()
+    for direction, tensors in (("fwd", 1), ("bwd", 2)):
+        t = fn.norm_tiling(b, hw, c, dtype, direction)
+        assert t == fn.norm_tiling(b, hw, c, dtype, direction)
+        assert t.cluster in (1, 2, 4, 8, 16)
+        starts = range(0, t.cluster * t.rows_per_block, t.rows_per_block)
+        owned = [range(s, min(s + t.rows_per_block, hw)) for s in starts]
+        assert all(len(rows) > 0 for rows in owned)
+        assert [r for rows in owned for r in rows] == list(range(hw))
+        assert 0 <= t.resident_rows <= t.rows_per_block
+        assert t.smem_bytes == fn._smem_bytes(c, t.resident_rows, elem,
+                                              tensors)
+        assert t.smem_bytes <= 232448
+        resident = t.resident_rows == t.rows_per_block
+        units = fn.norm_traffic_bytes(b, hw, c, dtype, direction, t) / (
+            b * hw * c * elem)
+        assert (units == tensors + 1) == resident
+        assert units <= 2 * tensors + 1
+        if shape in FLAGSHIP_NORM_SHAPES and dtype == torch.bfloat16 \
+                and direction == "fwd":
+            assert resident, t
+
+
+def test_norm_tiling_streams_what_the_cluster_cannot_hold():
+    """float32 at the largest stage, backward: x and dy are 6.4 MB, so a
+    cluster of 16 holds part of each block's rows and reads the rest
+    twice; a cluster of 8 at the same residency would stream more, and
+    the traffic counts each streamed row once more per tensor."""
+    t = fn.norm_tiling(2, 12544, 64, torch.float32, "bwd")
+    assert t.cluster == 16 and 0 < t.resident_rows < t.rows_per_block
+    smaller = t._replace(cluster=8, rows_per_block=1568)
+    traffic = [fn.norm_traffic_bytes(2, 12544, 64, torch.float32, "bwd", x)
+               for x in (t, smaller)]
+    assert 3 * 2 * 12544 * 64 * 4 < traffic[0] < traffic[1]
+    streamed = 16 * (t.rows_per_block - t.resident_rows)
+    assert traffic[0] == 2 * 64 * 4 * (3 * 12544 + 2 * streamed)
+    bf16 = fn.norm_tiling(2, 12544, 64, torch.bfloat16, "bwd")
+    assert bf16.cluster == 16 and bf16.resident_rows == bf16.rows_per_block
+    with pytest.raises(ValueError, match="direction"):
+        fn.norm_tiling(2, 16, 8, torch.float32, "both")
+
+
+def test_built_library_name_follows_the_headers(tmp_path, monkeypatch):
+    """An edited csrc header (*.cuh) names a new library, so a stale one
+    is never loaded."""
+    from srgan_tpu_torch.ops import _build
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+    alone = _build.library_path("k")
+    (tmp_path / "k.cuh").write_text("constexpr int kA = 1;\n")
+    first = _build.library_path("k")
+    (tmp_path / "k.cuh").write_text("constexpr int kA = 2;\n")
+    second = _build.library_path("k")
+    assert len({alone, first, second}) == 3
+    assert second == _build.library_path("k")
