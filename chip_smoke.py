@@ -14,6 +14,11 @@ Phases, each of which fails the run if it fails:
              bfloat16 density labels: labels exactly, images within 1e-6;
              the rescale sampler likewise at windows 168/224/280 (images
              within 1e-6, labels within 1e-5 of their largest value);
+             both over a 1000-image source (the flagship's split), timed
+             over 8 argument sets in turn so that the windows come from
+             device memory, each call and a step's two image calls and
+             one label call beside their bounds, and the image call once
+             more on a 16-image source as the earlier runs timed it;
              then the fused GroupNorm + activation forward and backward
              kernels against their plain versions at every norm shape of
              the flagship step, in bfloat16 (tolerances at
@@ -74,6 +79,8 @@ checkout of the repository.
 """
 
 import concurrent.futures
+import functools
+import itertools
 import json
 import math
 import os
@@ -92,11 +99,23 @@ STEPS = 8
 TIMED_STEPS = 20
 VALIDATION_PERIOD = 4
 RESCALE = (0.75, 1.0, 1.25)
+# The samplers' check reads from bench.py's flagship split of 1000 images
+# (384×512×3 uint8: 590 MB), so that its windows come from device memory;
+# the timing takes ARG_SETS argument sets in turn (8 × 18 MB of windows,
+# more than the 50 MB L2), TIMED_CALLS calls of each. The earlier times were
+# taken on L2_IMAGES images, which the L2 holds.
+SOURCE_IMAGES = 1000
+ARG_SETS = 8
+TIMED_CALLS = 24
+L2_IMAGES = 16
 # The card's peaks (H100 SXM data sheet, at 700 W): the bound of a call is
 # the larger of its bytes over the memory rate and its operations over the
 # float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The H100 SXM's highest SM clock: a sleep of 2·t·SM_CLOCK_HZ cycles lasts
+# at least 2·t.
+SM_CLOCK_HZ = 1.98e9
 FLAGSHIP = dict(  # bench.py's flagship crowd configuration
     trial_name="chip_smoke", batch_size=120, image_patch_size=224,
     model_base_width=64, latent_dimension=100, labeled_dataset_size=16,
@@ -150,11 +169,22 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, iters: int) -> float:
+def cuda_ms(fn, iters: int, queued: bool = False) -> float:
     """Mean device time of ``fn`` in ms, by CUDA events over ``iters``
-    calls after two warm-up calls."""
+    calls after two warm-up calls. ``queued``: the timed calls wait on the
+    card behind a sleep kernel that outlasts their enqueueing, so that they
+    run back to back whatever the host's time per call (a sampler call
+    takes the host about as long as the card)."""
     for _ in range(2):
         fn()
+    if queued:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2 * enqueue_s * SM_CLOCK_HZ))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -173,32 +203,69 @@ def least_ms(bytes_moved: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def paired_ms(plain, kernel, iters: int, plain_iters: int = 0):
+def paired_ms(plain, kernel, iters: int, plain_iters: int = 0,
+              queued: bool = False):
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain, so that
     both see the same warm-up; the plain version over ``plain_iters``
-    calls where given (a slow one), else ``iters``."""
+    calls where given (a slow one), else ``iters``; ``queued`` as in
+    ``cuda_ms``."""
     plain_iters = plain_iters or iters
-    t_plain = cuda_ms(plain, plain_iters)
-    t_kernel = cuda_ms(kernel, iters) + cuda_ms(kernel, iters)
-    t_plain += cuda_ms(plain, plain_iters)
+    t_plain = cuda_ms(plain, plain_iters, queued)
+    t_kernel = cuda_ms(kernel, iters, queued) + cuda_ms(kernel, iters, queued)
+    t_plain += cuda_ms(plain, plain_iters, queued)
     return t_kernel / 2, t_plain / 2
+
+
+def cycling(calls):
+    """One callable that makes the next of ``calls`` each time it is
+    called, round and round."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
+def sampler_step(name, times, bounds):
+    """Log and return a sampler's (ms, bound ms) per training step: two
+    image calls (uint8, C = 3) and one label call (float32, C = 1)."""
+    step_ms = 2 * times["images uint8"][0] + times["labels float32"][0]
+    step_bound = 2 * bounds["images uint8"] + bounds["labels float32"]
+    log(f"kernel {name}, a step's two image calls and one label call: "
+        f"{step_ms:.4f} ms, bound {step_bound:.4f} ms, "
+        f"{100 * step_bound / step_ms:.1f}% of the bound")
+    return {"step_ms": step_ms, "step_bound_ms": step_bound}
+
+
+def l2_source_ms(name, fn, src, indices, **call):
+    """Log the kernel's time on the first ``L2_IMAGES`` images of ``src``
+    with one argument set, the condition of the earlier sampler times: the
+    L2 holds that source."""
+    small = src[:L2_IMAGES]
+    idx = (indices % L2_IMAGES).to(torch.int32)
+    t = cuda_ms(lambda: fn(small, **call, indices=idx), TIMED_CALLS,
+                queued=True)
+    log(f"kernel {name} on a {L2_IMAGES}-image source, one argument set "
+        f"(the L2 holds it; the earlier sampler times' condition): "
+        f"{t:.4f} ms")
 
 
 def check_kernels(dev):
     """Phase 2: the patch kernel against the plain version at the
-    flagship shapes. Returns the kernel table entry (launches filled in
-    by the training phase)."""
+    flagship shapes, over a ``SOURCE_IMAGES``-image source, timed over
+    ``ARG_SETS`` argument sets in turn so that the windows come from
+    device memory. Returns the kernel table entry (the image call's
+    times, and a step's; launches filled in by the training phase)."""
     from srgan_tpu_torch.ops.patches import (extract_patches,
                                              extract_patches_plain)
-    n, h, w, b, p = 16, 384, 512, FLAGSHIP["batch_size"], 224
+    n, h, w, b, p = SOURCE_IMAGES, 384, 512, FLAGSHIP["batch_size"], 224
     gen = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
-    indices = torch.from_numpy(rng.integers(0, n, b).astype(np.int32))
-    offsets = torch.from_numpy(np.stack(
-        [rng.integers(0, h - p + 1, b), rng.integers(0, w - p + 1, b)],
-        -1).astype(np.int32))
-    flips = torch.from_numpy(rng.integers(0, 2, b).astype(np.int32))
-    indices, offsets, flips = (t.to(dev) for t in (indices, offsets, flips))
+    draws = []
+    for _ in range(ARG_SETS):
+        draw = (rng.integers(0, n, b),
+                np.stack([rng.integers(0, h - p + 1, b),
+                          rng.integers(0, w - p + 1, b)], -1),
+                rng.integers(0, 2, b))
+        draws.append([torch.from_numpy(a.astype(np.int32)).to(dev)
+                      for a in draw])
     images = torch.randint(0, 256, (n, h, w, 3), generator=gen, device=dev,
                            dtype=torch.uint8)
     labels = torch.rand((n, h, w, 1), generator=gen, device=dev) * 1e-2
@@ -206,12 +273,14 @@ def check_kernels(dev):
              ("labels float32", labels, 1.0, 0.0, 0.0),
              ("labels bfloat16", labels.to(torch.bfloat16), 1.0, 0.0, 0.0)]
     worst = 0.0
-    times = {}
+    times, bounds = {}, {}
     for name, src, scale, shift, tol in cases:
-        call = dict(patch_size=p, scale=scale, shift=shift, indices=indices)
-        got = extract_patches(src, offsets, flips, **call)
+        call = dict(patch_size=p, scale=scale, shift=shift)
+        indices, offsets, flips = draws[0]
+        got = extract_patches(src, offsets, flips, indices=indices, **call)
         torch.cuda.synchronize()
-        want = extract_patches_plain(src, offsets, flips, **call)
+        want = extract_patches_plain(src, offsets, flips, indices=indices,
+                                     **call)
         if (got.shape != (b, p, p, src.shape[-1]) or not got.is_cuda
                 or got.dtype != torch.float32):
             raise AssertionError(f"patch kernel returned {got.dtype} "
@@ -221,54 +290,73 @@ def check_kernels(dev):
             raise AssertionError(f"patch kernel disagrees on {name}: "
                                  f"max |err| {err} > {tol}")
         worst = max(worst, err)
+        del got, want
         t_kernel, t_plain = paired_ms(
-            lambda: extract_patches_plain(src, offsets, flips, **call),
-            lambda: extract_patches(src, offsets, flips, **call), 20)
-        bytes_moved = b * p * p * src.shape[-1] * (src.element_size() + 4)
+            cycling([functools.partial(extract_patches_plain, src, o, f,
+                                       indices=i, **call)
+                     for i, o, f in draws]),
+            cycling([functools.partial(extract_patches, src, o, f,
+                                       indices=i, **call)
+                     for i, o, f in draws]), TIMED_CALLS, queued=True)
+        # Windows in, float32 patches out, 4 int32 per example; one
+        # multiply and one add per element.
+        elems = b * p * p * src.shape[-1]
+        bytes_moved = elems * (src.element_size() + 4) + b * 16
+        bounds[name] = least_ms(bytes_moved, 2 * elems)[0]
         log(f"kernel extract_patches [{name}] {list(src.shape)} -> "
-            f"{list(got.shape)}: max|err| {err:g}, kernel {t_kernel:.4f} ms "
+            f"[{b}, {p}, {p}, {src.shape[-1]}], {ARG_SETS} argument sets "
+            f"in turn: max|err| {err:g}, kernel {t_kernel:.4f} ms "
             f"({bytes_moved / t_kernel / 1e6:.1f} GB/s), plain "
-            f"{t_plain:.4f} ms")
+            f"{t_plain:.4f} ms, bound {bounds[name]:.4f} ms, "
+            f"{100 * bounds[name] / t_kernel:.1f}% of the bound")
+        l2_source_ms(f"extract_patches [{name}]", extract_patches, src,
+                     indices, offsets=offsets, flips=flips, **call)
         times[name] = (t_kernel, t_plain)
+    del images, labels, cases, src
+    torch.cuda.empty_cache()
     t_kernel, t_plain = times["images uint8"]
-    # The image call: u8 windows in, f32 patches out, 4 int32 per example;
-    # one multiply and one add per element.
-    elems = b * p * p * 3
-    bound_ms, bound_by = least_ms(elems * (1 + 4) + b * 16, 2 * elems)
+    bound_ms, bound_by = least_ms(
+        b * p * p * 3 * (1 + 4) + b * 16, 2 * b * p * p * 3)
     # No single PyTorch call gathers, crops, flips and normalizes.
     return {"name": "extract_patches", "route": "cuda",
             "source": "srgan_tpu_torch/csrc/patches.cu",
             "replaces": "srgan_tpu/ops/patches.py:49",
             "launches": None, "max_abs_err": worst, "ms": t_kernel,
             "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None,
+            **sampler_step("extract_patches", times, bounds)}
 
 
 def check_rescale_kernel(dev):
     """Phase 2: the rescale kernel against its plain version at the
-    flagship shapes: 120 examples over a 16×384×512 source, windows
-    (168, 224, 280) each used by a third of the batch, flips both ways,
-    offsets at both bounds. Tolerances: images max |err| ≤ 1e-6, labels ≤
-    1e-5 of their largest value; the two compute the same float32 terms
-    in different sum orders. Returns the kernel table entry (the image
-    call's times; ``max_abs_err`` the images' absolute error and the
-    labels' error relative to their largest value, whichever is larger)."""
+    flagship shapes: 120 examples over a ``SOURCE_IMAGES``-image
+    384×512 source, windows (168, 224, 280) each used by a third of the
+    batch, flips both ways, offsets at both bounds; timed over
+    ``ARG_SETS`` argument sets in turn, as ``check_kernels``. Tolerances:
+    images max |err| ≤ 1e-6, labels ≤ 1e-5 of their largest value; the two
+    compute the same float32 terms in different sum orders. Returns the
+    kernel table entry (the image call's times, and a step's;
+    ``max_abs_err`` the images' absolute error and the labels' error
+    relative to their largest value, whichever is larger)."""
     from srgan_tpu_torch.ops.patches import (_tap_table,
                                              extract_rescaled_patches,
                                              extract_rescaled_patches_plain)
-    n, h, w, b, p = 16, 384, 512, FLAGSHIP["batch_size"], 224
+    n, h, w, b, p = SOURCE_IMAGES, 384, 512, FLAGSHIP["batch_size"], 224
     windows = tuple(int(round(p * f)) for f in RESCALE)
     rng = np.random.default_rng(1)
-    sidx = rng.permutation(np.arange(b) % len(windows)).astype(np.int32)
-    win = np.asarray(windows)[sidx]
-    offsets = np.stack([rng.integers(0, h - win + 1),
-                        rng.integers(0, w - win + 1)], -1).astype(np.int32)
-    offsets[:3] = 0
-    offsets[3:6] = np.stack([h - win[3:6], w - win[3:6]], -1)
-    flips = (np.arange(b) % 2).astype(np.int32)
-    indices = rng.integers(0, n, b).astype(np.int32)
-    indices, offsets_t, flips, sidx_t = (
-        torch.from_numpy(a).to(dev) for a in (indices, offsets, flips, sidx))
+    draws = []
+    for k in range(ARG_SETS):
+        sidx = rng.permutation(np.arange(b) % len(windows)).astype(np.int32)
+        win = np.asarray(windows)[sidx]
+        offsets = np.stack([rng.integers(0, h - win + 1),
+                            rng.integers(0, w - win + 1)], -1)
+        if k == 0:
+            offsets[:3] = 0
+            offsets[3:6] = np.stack([h - win[3:6], w - win[3:6]], -1)
+        flips = (np.arange(b) % 2) if k == 0 else rng.integers(0, 2, b)
+        indices = rng.integers(0, n, b)
+        draws.append([torch.from_numpy(a.astype(np.int32)).to(dev)
+                      for a in (indices, offsets, flips, sidx)])
     gen = torch.Generator(device=dev).manual_seed(3)
     images = torch.randint(0, 256, (n, h, w, 3), generator=gen, device=dev,
                            dtype=torch.uint8)
@@ -277,16 +365,21 @@ def check_rescale_kernel(dev):
              ("labels float32", labels, 1.0, 0.0, True),
              ("labels bfloat16", labels.to(torch.bfloat16), 1.0, 0.0, True)]
     taps = _tap_table(windows, p)[2]
+    # Every argument set uses each window for a third of the batch, so
+    # every set has the same bound.
+    win = np.asarray(windows)[draws[0][3].cpu().numpy()]
     worst = 0.0
     entry = None
+    times, bounds = {}, {}
     for name, src, scale, shift, mass in cases:
         c = src.shape[-1]
         call = dict(patch_size=p, window_sizes=windows, scale=scale,
-                    shift=shift, preserve_mass=mass, indices=indices)
-        args = (src, offsets_t, flips, sidx_t)
-        got = extract_rescaled_patches(*args, **call)
+                    shift=shift, preserve_mass=mass)
+        indices, offsets, flips, sidx = draws[0]
+        args = (src, offsets, flips, sidx)
+        got = extract_rescaled_patches(*args, indices=indices, **call)
         torch.cuda.synchronize()
-        want = extract_rescaled_patches_plain(*args, **call)
+        want = extract_rescaled_patches_plain(*args, indices=indices, **call)
         if got.shape != (b, p, p, c) or got.dtype != torch.float32:
             raise AssertionError(f"rescale kernel returned {got.dtype} "
                                  f"{list(got.shape)}")
@@ -297,9 +390,14 @@ def check_rescale_kernel(dev):
             raise AssertionError(f"rescale kernel disagrees on {name}: "
                                  f"max |err| {err} > {tol}")
         worst = max(worst, err if src.dtype == torch.uint8 else err / largest)
+        del got, want
         t_kernel, t_plain = paired_ms(
-            lambda: extract_rescaled_patches_plain(*args, **call),
-            lambda: extract_rescaled_patches(*args, **call), 20)
+            cycling([functools.partial(extract_rescaled_patches_plain, src,
+                                       o, f, s, indices=i, **call)
+                     for i, o, f, s in draws]),
+            cycling([functools.partial(extract_rescaled_patches, src, o, f,
+                                       s, indices=i, **call)
+                     for i, o, f, s in draws]), TIMED_CALLS, queued=True)
         # Each window read once, each patch written once, 5 int32 per
         # example. Operations: per output row of a resized window, K taps
         # across the window (a multiply-add and the normalization's
@@ -312,11 +410,18 @@ def check_rescale_kernel(dev):
                         + int(resized.sum()) * p * (2 * taps + 1))
                + int((~resized).sum()) * p * p * c * 3)
         bound_ms, bound_by = least_ms(bytes_moved, ops)
+        bounds[name] = bound_ms
         log(f"kernel extract_rescaled_patches [{name}] {list(src.shape)} -> "
-            f"{list(got.shape)}, windows {windows}, {taps} taps: max|err| "
-            f"{err:g} (tolerance {tol:g}), kernel {t_kernel:.4f} ms "
+            f"[{b}, {p}, {p}, {c}], windows {windows}, {taps} taps, "
+            f"{ARG_SETS} argument sets in turn: max|err| {err:g} "
+            f"(tolerance {tol:g}), kernel {t_kernel:.4f} ms "
             f"({bytes_moved / t_kernel / 1e6:.1f} GB/s), plain "
-            f"{t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"{t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / t_kernel:.1f}% of the bound")
+        l2_source_ms(f"extract_rescaled_patches [{name}]",
+                     extract_rescaled_patches, src, indices,
+                     offsets=offsets, flips=flips, scale_idx=sidx, **call)
+        times[name] = (t_kernel, t_plain)
         if entry is None:  # the table holds the image call
             entry = {"name": "extract_rescaled_patches", "route": "cuda",
                      "source": "srgan_tpu_torch/csrc/patches.cu",
@@ -326,7 +431,10 @@ def check_rescale_kernel(dev):
                      # No single PyTorch call gathers, crops, resizes with
                      # JAX's weights and flips.
                      "library_ms": None}
+    del images, labels, cases, src
+    torch.cuda.empty_cache()
     entry["max_abs_err"] = worst
+    entry.update(sampler_step("extract_rescaled_patches", times, bounds))
     return entry
 
 

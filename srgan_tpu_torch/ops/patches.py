@@ -16,9 +16,9 @@ Each comes in three functions:
 
 * the wrapper (:func:`extract_patches`, :func:`extract_rescaled_patches`).
   On a CUDA tensor it launches its hand-written kernel of
-  ``csrc/patches.cu`` (built at first use) or raises; on a CPU tensor, and
-  only there, it runs the plain version. Every launch adds one to the
-  wrapper's ``launches``;
+  ``csrc/patches.cu`` (built at first use) on the launch plan of
+  :func:`sampler_plan`, or raises; on a CPU tensor, and only there, it runs
+  the plain version. Every launch adds one to the wrapper's ``launches``;
 * the same function in plain PyTorch (``*_plain``), on any device. The CPU
   tests use it; ``chip_smoke.py`` holds the kernel against it on the card;
 * the NumPy golden model (``*_reference``).
@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,11 +47,11 @@ def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
     lib = _build.load_library("patches")
     fn = lib.srgan_extract_patches
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.srgan_extract_rescaled_patches
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -116,26 +116,35 @@ def extract_patches(images: torch.Tensor, offsets: torch.Tensor,
                                      shift=shift, indices=indices)
     indices = _check_launch("extract_patches", images, indices,
                             offsets=offsets, flips=flips)
-    n, h, w, c = images.shape
-    b = indices.shape[0]
+    _, h, w, c = images.shape
     p = int(patch_size)
-    if not 0 < p <= min(h, w):
-        raise ValueError(f"patch_size {p} does not fit {h}x{w} images")
+    plan = sampler_plan(indices.shape[0], h, w, c, p, images.element_size())
+    return _launch_patches(images, indices, offsets, flips, p, scale, shift,
+                           plan)
+
+
+extract_patches.launches = 0
+
+
+def _launch_patches(images: torch.Tensor, indices: torch.Tensor,
+                    offsets: torch.Tensor, flips: torch.Tensor, p: int,
+                    scale: float, shift: float, plan: SamplerPlan
+                    ) -> torch.Tensor:
+    """The fixed sampler's kernel on checked arguments at ``plan``."""
+    _, h, w, c = images.shape
+    b = indices.shape[0]
     out = torch.empty((b, p, p, c), dtype=torch.float32, device=images.device)
     lib = _library()
     stream = torch.cuda.current_stream(images.device).cuda_stream
     code = lib.srgan_extract_patches(
         images.data_ptr(), indices.data_ptr(), offsets.data_ptr(),
         flips.data_ptr(), out.data_ptr(), _DTYPE_CODES[images.dtype],
-        b, h, w, c, p, scale, shift, stream)
+        b, h, w, c, p, *plan, scale, shift, stream)
     if code != 0:
         raise RuntimeError(f"patches kernel launch failed: "
                            f"{lib.srgan_cuda_error_string(code).decode()}")
     extract_patches.launches += 1
     return out
-
-
-extract_patches.launches = 0
 
 
 def extract_patches_plain(images: torch.Tensor, offsets: torch.Tensor,
@@ -288,6 +297,122 @@ def _device_tap_table(window_sizes: Tuple[int, ...], patch: int,
             torch.tensor(mass, dtype=torch.float32, device=device), taps)
 
 
+# ---------------------------------------------------------------------------
+# The kernels' launch plan.
+# ---------------------------------------------------------------------------
+
+# A block of csrc/patches.cu: 128 threads, and at most 227 KB of shared
+# memory (the C side checks both again). Its tile: the largest of
+# _ROW_CHOICES rows that leaves at least _PLAN_MIN_BLOCKS blocks (16 for
+# each of the H100's 132 SMs) and keeps a block within a quarter of the
+# shared-memory limit; else one row. At the flagship's calls that is 8
+# rows: on the H100, 8 rows of 128 threads measured the fastest of 2 to 16
+# rows of 128 to 512 threads for both samplers (PERF.md).
+_PLAN_THREADS = 128
+_PLAN_SMEM_LIMIT = 232448
+_ROW_CHOICES = (16, 8, 4, 2)
+_PLAN_MIN_BLOCKS = 16 * 132
+_PLAN_SMEM_TARGET = _PLAN_SMEM_LIMIT // 4
+# The rescale contracts a tile's rows along y and then x this many at a
+# time (kVrowRows in csrc/patches.cu).
+_VROW_ROWS = 4
+
+
+class SamplerPlan(NamedTuple):
+    """How a sampler kernel cuts its output: blocks of ``threads`` threads,
+    each writing ``tile_rows`` consecutive output rows of one example
+    (the last tile of an example may hold fewer) from at most
+    ``staged_rows`` source rows held in ``smem_bytes`` of shared memory."""
+    tile_rows: int
+    threads: int
+    staged_rows: int
+    smem_bytes: int
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _row_stride(elems: int, itemsize: int) -> int:
+    """Shared-memory bytes of one staged source row (``row_stride`` in
+    csrc/patches.cu): the 16-byte vectors over a span that may start
+    anywhere within one."""
+    return _align16(elems * itemsize + 15)
+
+
+def tile_source_rows(first: np.ndarray, window: int, taps: int, y0: int,
+                     y1: int) -> Tuple[int, int]:
+    """The window rows ``[j0, j1]`` that the rescale kernel stages for
+    output rows ``y0 .. y1 - 1`` of a window of side ``window`` whose tap
+    table row is ``first`` (``_tap_table``): from their least first tap to
+    their greatest last tap, inside the window."""
+    f = first[y0:y1]
+    return int(f.min()), min(int(f.max()) + taps - 1, window - 1)
+
+
+def _sampler_layout(rows: int, c: int, p: int, itemsize: int,
+                   window_sizes: Optional[Tuple[int, ...]] = None
+                   ) -> Tuple[int, int]:
+    """(staged rows, shared-memory bytes) of a block whose tile is ``rows``
+    output rows (the layout of csrc/patches.cu). The fixed sampler stages
+    its tile's rows of P·C elements. The rescale sampler holds its scale's
+    tap table (P first indices, P·K weights) and up to ``_VROW_ROWS`` of
+    its tile's rows contracted along y (float32, at most the widest window
+    wide), and stages the source rows its tile reads
+    (:func:`tile_source_rows`; a tile of a window of side P, which is
+    copied, its own rows): at most the returned count of the widest
+    window."""
+    if window_sizes is None:
+        return rows, rows * _row_stride(p * c, itemsize)
+    first, _, taps = _tap_table(window_sizes, p)
+    widest = max(window_sizes)
+    staged = rows if p in window_sizes else 1
+    for s, ws in enumerate(window_sizes):
+        if ws == p:
+            continue
+        for y0 in range(0, p, rows):
+            j0, j1 = tile_source_rows(first[s], ws, taps, y0,
+                                      min(y0 + rows, p))
+            staged = max(staged, j1 - j0 + 1)
+    return staged, (_align16(4 * p) + _align16(4 * p * taps)
+                    + _align16(4 * min(rows, _VROW_ROWS) * widest * c)
+                    + staged * _row_stride(widest * c, itemsize))
+
+
+@functools.lru_cache(maxsize=None)
+def sampler_plan(b: int, h: int, w: int, c: int, p: int, itemsize: int,
+                 window_sizes: Optional[Tuple[int, ...]] = None
+                 ) -> SamplerPlan:
+    """The launch plan of the fixed sampler (``window_sizes`` None) or of
+    the rescale sampler over ``window_sizes``, for B examples of P×P from
+    [N, H, W, C] sources of ``itemsize`` bytes an element: the rows a
+    tile, and what :func:`_sampler_layout` stages for them. Raises
+    ValueError, with the wrapper's message, on what the kernels do not
+    take. A pure function of its arguments.
+    """
+    if window_sizes is None:
+        if not 0 < p <= min(h, w):
+            raise ValueError(f"patch_size {p} does not fit {h}x{w} images")
+        what = f"a {p}-wide patch"
+    else:
+        _check_windows(window_sizes, h, w)
+        if p < 1:
+            raise ValueError(f"patch_size must be ≥ 1, got {p}")
+        what = f"a {max(window_sizes)}-wide window"
+    if not 0 <= b <= 65535:
+        raise ValueError(f"the patch kernels take at most 65535 examples, "
+                         f"got {b}")
+    for rows in [r for r in _ROW_CHOICES if r <= p] + [1]:
+        staged, smem = _sampler_layout(rows, c, p, itemsize, window_sizes)
+        if (rows == 1 or (b * -(-p // rows) >= _PLAN_MIN_BLOCKS
+                          and smem <= _PLAN_SMEM_TARGET)):
+            break
+    if smem > _PLAN_SMEM_LIMIT:
+        raise ValueError(f"{what} of {c} channels exceeds the kernel's "
+                         f"{_PLAN_SMEM_LIMIT} bytes of shared memory")
+    return SamplerPlan(rows, _PLAN_THREADS, staged, smem)
+
+
 def extract_rescaled_patches(images: torch.Tensor, offsets: torch.Tensor,
                              flips: torch.Tensor, scale_idx: torch.Tensor, *,
                              patch_size: int,
@@ -324,16 +449,26 @@ def extract_rescaled_patches(images: torch.Tensor, offsets: torch.Tensor,
             preserve_mass=preserve_mass, indices=indices)
     indices = _check_launch("extract_rescaled_patches", images, indices,
                             offsets=offsets, flips=flips, scale_idx=scale_idx)
-    n, h, w, c = images.shape
-    _check_windows(window_sizes, h, w)
-    b = indices.shape[0]
+    _, h, w, c = images.shape
     p = int(patch_size)
-    if p < 1:
-        raise ValueError(f"patch_size must be ≥ 1, got {p}")
-    # One f32 row of the largest window in (static) shared memory.
-    if max(window_sizes) * c * 4 > 48 * 1024:
-        raise ValueError(f"a {max(window_sizes)}-wide window of {c} "
-                         f"channels exceeds the kernel's 48 KB row buffer")
+    plan = sampler_plan(indices.shape[0], h, w, c, p, images.element_size(),
+                        window_sizes)
+    return _launch_rescaled(images, indices, offsets, flips, scale_idx, p,
+                            window_sizes, scale, shift, preserve_mass, plan)
+
+
+extract_rescaled_patches.launches = 0
+
+
+def _launch_rescaled(images: torch.Tensor, indices: torch.Tensor,
+                     offsets: torch.Tensor, flips: torch.Tensor,
+                     scale_idx: torch.Tensor, p: int,
+                     window_sizes: Tuple[int, ...], scale: float,
+                     shift: float, preserve_mass: bool, plan: SamplerPlan
+                     ) -> torch.Tensor:
+    """The rescale sampler's kernel on checked arguments at ``plan``."""
+    _, h, w, c = images.shape
+    b = indices.shape[0]
     windows, first, weights, mass, taps = _device_tap_table(
         window_sizes, p, images.device)
     out = torch.empty((b, p, p, c), dtype=torch.float32, device=images.device)
@@ -344,16 +479,13 @@ def extract_rescaled_patches(images: torch.Tensor, offsets: torch.Tensor,
         flips.data_ptr(), scale_idx.data_ptr(), windows.data_ptr(),
         first.data_ptr(), weights.data_ptr(), mass.data_ptr(),
         out.data_ptr(), _DTYPE_CODES[images.dtype], b, h, w, c, p,
-        len(window_sizes), taps, max(window_sizes), scale, shift,
+        len(window_sizes), taps, max(window_sizes), *plan, scale, shift,
         int(bool(preserve_mass)), stream)
     if code != 0:
         raise RuntimeError(f"rescaled patches kernel launch failed: "
                            f"{lib.srgan_cuda_error_string(code).decode()}")
     extract_rescaled_patches.launches += 1
     return out
-
-
-extract_rescaled_patches.launches = 0
 
 
 def extract_rescaled_patches_plain(images: torch.Tensor,

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from srgan_tpu_torch.ops import fused_norm as fn
+from srgan_tpu_torch.ops import patches
 from srgan_tpu_torch.ops.density import density_maps, density_maps_plain
 from srgan_tpu_torch.ops.patches import (extract_patches,
                                          extract_patches_plain,
@@ -28,40 +29,59 @@ pytestmark = [
 ]
 
 
-def _inputs(dtype, channels):
+def _inputs(dtype, channels, n=N, h=H, w=W, p=P, b=B):
+    """Sources, indices, offsets and flips on the card. The first window
+    sits at the origin, the last at the last row and column of the
+    tensor's last image, the second (where B > 2) at an odd column, so that
+    its rows start inside a 16-byte vector; flips alternate."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     if dtype == torch.uint8:
-        images = torch.randint(0, 256, (N, H, W, channels), generator=gen,
+        images = torch.randint(0, 256, (n, h, w, channels), generator=gen,
                                device=dev, dtype=torch.uint8)
     else:
-        images = torch.randn((N, H, W, channels), generator=gen,
+        images = torch.randn((n, h, w, channels), generator=gen,
                              device=dev).to(dtype)
-    indices = torch.randint(0, N, (B,), generator=gen, device=dev,
+    indices = torch.randint(0, n, (b,), generator=gen, device=dev,
                             dtype=torch.int32)
     offsets = torch.stack(
-        [torch.randint(0, H - P + 1, (B,), generator=gen, device=dev),
-         torch.randint(0, W - P + 1, (B,), generator=gen, device=dev)],
+        [torch.randint(0, h - p + 1, (b,), generator=gen, device=dev),
+         torch.randint(0, w - p + 1, (b,), generator=gen, device=dev)],
         -1).to(torch.int32)
     offsets[0] = torch.tensor([0, 0])
-    offsets[1] = torch.tensor([H - P, W - P])
-    flips = torch.tensor([0, 1] * (B // 2), dtype=torch.int32, device=dev)
+    if b > 2:
+        offsets[1] = torch.tensor([1, 1])
+    offsets[-1] = torch.tensor([h - p, w - p])
+    indices[-1] = n - 1
+    flips = (torch.arange(b, device=dev) % 2).to(torch.int32)
     return images, indices, offsets.contiguous(), flips
 
 
-@pytest.mark.parametrize("dtype,channels,scale,shift", [
+# (N, H, W, P, B): the tests' default; a source pitch that is not a whole
+# number of 16-byte vectors (W = 97); output rows that are not (P = 30);
+# one example; and 300 examples, more than the card holds blocks at once,
+# whose plan takes several rows a block, also with a partial last tile.
+GEOMETRIES = [(N, H, W, P, B), (N, H, 97, P, B), (N, H, W, 30, B),
+              (2, H, W, P, 1), (N, H, W, P, 300), (N, H, 97, 30, 300)]
+PATCH_CASES = [  # (dtype, channels, scale, shift)
     (torch.uint8, 3, 2.0 / 255.0, -1.0),
     (torch.float32, 1, 1.0, 0.0),
     (torch.bfloat16, 1, 1.0, 0.0),
-])
-def test_patch_kernel_equals_plain(dtype, channels, scale, shift):
-    images, indices, offsets, flips = _inputs(dtype, channels)
+    (torch.bfloat16, 3, 2.0, -1.0),
+]
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES)
+@pytest.mark.parametrize("dtype,channels,scale,shift", PATCH_CASES)
+def test_patch_kernel_equals_plain(dtype, channels, scale, shift, geometry):
+    n, h, w, p, b = geometry
+    images, indices, offsets, flips = _inputs(dtype, channels, n, h, w, p, b)
     before = extract_patches.launches
-    got = extract_patches(images, offsets, flips, patch_size=P, scale=scale,
+    got = extract_patches(images, offsets, flips, patch_size=p, scale=scale,
                           shift=shift, indices=indices)
     torch.cuda.synchronize()
     assert extract_patches.launches == before + 1
-    want = extract_patches_plain(images, offsets, flips, patch_size=P,
+    want = extract_patches_plain(images, offsets, flips, patch_size=p,
                                  scale=scale, shift=shift, indices=indices)
     # Exact: the kernel rounds the multiply and the add separately.
     torch.testing.assert_close(got, want, rtol=0, atol=0)
@@ -78,41 +98,78 @@ def test_patch_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="dtype"):
         extract_patches(images.to(torch.int16), offsets, flips,
                         patch_size=P, indices=indices)
+    with pytest.raises(ValueError, match="does not fit"):
+        extract_patches(images, offsets, flips, patch_size=H + 1,
+                        indices=indices)
+    # A plan the kernel does not take: too little shared memory for its
+    # rows, more rows than the patch, a thread count off the warp size.
+    plan = patches.sampler_plan(B, H, W, 3, P, 1)
+    for bad in (plan._replace(smem_bytes=plan.smem_bytes - 16),
+                plan._replace(tile_rows=P + 1, staged_rows=P + 1),
+                plan._replace(threads=100)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            patches._launch_patches(images, indices, offsets, flips, P, 1.0,
+                                    0.0, bad)
 
 
+@pytest.mark.parametrize("geometry", GEOMETRIES)
 @pytest.mark.parametrize("windows", [(24, 32, 40), (19, 45)])
 @pytest.mark.parametrize("dtype,channels,scale,shift,mass", [
     (torch.uint8, 3, 2.0 / 255.0, -1.0, False),
     (torch.float32, 1, 1.0, 0.0, True),
     (torch.bfloat16, 1, 1.0, 0.0, True),
+    (torch.bfloat16, 3, 2.0, -1.0, False),
 ])
 def test_rescale_kernel_equals_plain(windows, dtype, channels, scale, shift,
-                                     mass):
+                                     mass, geometry):
     """Images within 1e-6, labels within 1e-5 of their largest value (the
     same float32 terms in another sum order); windows of side P exactly."""
-    images, indices, _, flips = _inputs(dtype, channels)
+    n, h, w, p, b = geometry
+    images, indices, _, flips = _inputs(dtype, channels, n, h, w, p, b)
     dev = images.device
-    sidx = torch.arange(B, device=dev, dtype=torch.int32) % len(windows)
+    sidx = torch.arange(b, device=dev, dtype=torch.int32) % len(windows)
     win = torch.tensor(windows, device=dev)[sidx.long()]
     gen = torch.Generator(device=dev).manual_seed(2)
     offsets = torch.stack(
-        [(torch.rand(B, generator=gen, device=dev) * (H - win + 1)).long(),
-         (torch.rand(B, generator=gen, device=dev) * (W - win + 1)).long()],
+        [(torch.rand(b, generator=gen, device=dev) * (h - win + 1)).long(),
+         (torch.rand(b, generator=gen, device=dev) * (w - win + 1)).long()],
         -1)
     offsets[0] = 0
-    offsets[1] = torch.stack([H - win[1], W - win[1]])
+    if b > 2:
+        offsets[1] = 1
+    offsets[-1] = torch.stack([h - win[-1], w - win[-1]])
     offsets = offsets.to(torch.int32).contiguous()
-    kw = dict(patch_size=P, window_sizes=windows, scale=scale, shift=shift,
+    kw = dict(patch_size=p, window_sizes=windows, scale=scale, shift=shift,
               preserve_mass=mass, indices=indices)
     before = extract_rescaled_patches.launches
     got = extract_rescaled_patches(images, offsets, flips, sidx, **kw)
     torch.cuda.synchronize()
     assert extract_rescaled_patches.launches == before + 1
     want = extract_rescaled_patches_plain(images, offsets, flips, sidx, **kw)
-    tol = 1e-6 if dtype == torch.uint8 else 1e-5 * float(want.abs().max())
+    tol = (1e-6 if dtype == torch.uint8
+           else 1e-5 * float(want.abs().max()))
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
-    identity = win == P
+    identity = win == p
     torch.testing.assert_close(got[identity], want[identity], rtol=0, atol=0)
+
+
+def test_samplers_repeat_bit_for_bit():
+    """Two launches on the same inputs give the same bits, both samplers,
+    with a plan of several rows a block."""
+    images, indices, offsets, flips = _inputs(torch.uint8, 3, b=300)
+    sidx = torch.arange(300, device=images.device, dtype=torch.int32) % 3
+    offsets = torch.minimum(offsets, torch.tensor([H - 40, W - 40],
+                                                  device=images.device))
+    offsets = offsets.to(torch.int32).contiguous()
+    kw = dict(patch_size=P, scale=2.0 / 255.0, shift=-1.0, indices=indices)
+    first = extract_patches(images, offsets, flips, **kw)
+    again = extract_patches(images, offsets, flips, **kw)
+    rescale = dict(kw, window_sizes=(24, 32, 40))
+    rescaled = [extract_rescaled_patches(images, offsets, flips, sidx,
+                                         **rescale) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(*rescaled)
 
 
 # The fused norm kernels against their plain versions: small shapes of

@@ -11,7 +11,8 @@ import torch
 from srgan_tpu.ops.patches import extract_patches as jax_extract_patches
 from srgan_tpu_torch.ops.patches import (extract_patches,
                                          extract_patches_plain,
-                                         extract_patches_reference)
+                                         extract_patches_reference,
+                                         sampler_plan)
 
 N, H, W, P, B = 3, 80, 96, 32, 6
 
@@ -97,3 +98,47 @@ def test_wrapper_on_cpu_launches_no_kernel():
                     torch.from_numpy(flips), patch_size=P,
                     indices=torch.from_numpy(indices))
     assert extract_patches.launches == before
+
+
+# The launch plan (``sampler_plan``) at the flagship's calls (the image and
+# label calls of a step, the validation's 96 grid patches), at the tests'
+# shapes, at rows that are not whole 16-byte vectors (W = 97; P = 30), and
+# at batches of 1 and 300: (B, H, W, C, P, itemsize).
+PLAN_SHAPES = [(120, 384, 512, 3, 224, 1), (120, 384, 512, 1, 224, 4),
+               (96, 384, 512, 3, 224, 1), (B, H, W, 3, P, 1),
+               (B, H, W, 1, P, 4), (B, H, W, 1, P, 2), (B, H, 97, 3, P, 1),
+               (B, H, W, 1, 30, 1), (1, H, W, 3, P, 1),
+               (300, H, 97, 3, 30, 2)]
+SMEM_LIMIT = 227 * 1024  # what a block of the H100 may take
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_sampler_plan_tiles_every_row_once(shape):
+    b, h, w, c, p, itemsize = shape
+    plan = sampler_plan(*shape)
+    rows = plan.tile_rows
+    covered = np.zeros(p, int)
+    for tile in range(-(-p // rows)):  # the kernel's grid.x
+        covered[tile * rows:min(tile * rows + rows, p)] += 1
+    np.testing.assert_array_equal(covered, 1)
+    # Each block stages its tile's rows of P·C elements, each from any
+    # byte of a 16-byte vector.
+    assert plan.staged_rows == rows
+    assert plan.smem_bytes == rows * (-(-(p * c * itemsize + 15) // 16) * 16)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    if p == 224:  # the flagship's calls fill the 132 SMs twice over
+        assert rows > 1 and b * -(-p // rows) >= 16 * 132
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((B, H, W, 3, 81, 1), "does not fit"),
+    ((B, H, W, 3, 0, 1), "does not fit"),
+    ((1, 20000, 20000, 3, 20000, 4), "exceeds the kernel's 232448 bytes"),
+    ((65536, H, W, 3, P, 1), "at most 65535 examples"),
+])
+def test_sampler_plan_refuses_what_the_kernel_does_not_take(shape, match):
+    """The plan raises the wrapper's error (the wrapper calls it before a
+    launch)."""
+    with pytest.raises(ValueError, match=match):
+        sampler_plan(*shape)

@@ -28,10 +28,12 @@ from srgan_tpu.ops import patches as jax_patches
 from srgan_tpu.settings import Settings as JaxSettings
 from srgan_tpu.train import init_train_state as jax_init_train_state
 from srgan_tpu_torch.apps.crowd import CrowdExperiment
-from srgan_tpu_torch.ops.patches import (extract_rescaled_patches,
+from srgan_tpu_torch.ops.patches import (_tap_table,
+                                         extract_rescaled_patches,
                                          extract_rescaled_patches_plain,
                                          extract_rescaled_patches_reference,
-                                         resize_weights)
+                                         resize_weights, sampler_plan,
+                                         tile_source_rows)
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.train import init_train_state
 
@@ -153,6 +155,70 @@ def test_window_sizes_are_checked(windows, match):
             torch.from_numpy(flips), torch.from_numpy(sidx % 2),
             patch_size=P, window_sizes=windows,
             indices=torch.from_numpy(idx))
+
+
+# The rescale kernel's launch plan (``sampler_plan``): at the flagship's
+# three calls of a step (uint8 images, float32 labels; bfloat16 labels), at
+# the tests' windows, at rows that are not whole 16-byte vectors (W = 97,
+# P = 30), and at batches of 1 and 300: (B, H, W, C, P, itemsize, windows).
+FLAGSHIP_WINDOWS = (168, 224, 280)
+PLAN_CASES = [(120, 384, 512, 3, 224, 1, FLAGSHIP_WINDOWS),
+              (120, 384, 512, 1, 224, 4, FLAGSHIP_WINDOWS),
+              (120, 384, 512, 1, 224, 2, FLAGSHIP_WINDOWS),
+              (12, H, W, 3, P, 1, (24, 32, 40)), (8, H, W, 1, P, 4, (19, 45)),
+              (300, H, W, 3, P, 1, (24, 32, 40)),
+              (300, H, 97, 1, 30, 2, (19, 45)), (1, H, 97, 3, 30, 1, (24, 40))]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_rescale_plan_stages_every_tap_of_each_tile(case):
+    """Every output row in exactly one tile; each tile's staged rows hold
+    every tap that ``_tap_table`` gives its rows (up to the first past the
+    window, where the kernel's sum ends) and every nonzero resize weight,
+    inside the window; shared memory within the H100's 227 KB."""
+    *shape, windows = case
+    b, h, w, c, p, itemsize = shape
+    plan = sampler_plan(*shape, windows)
+    first, _, taps = _tap_table(windows, p)
+    rows = plan.tile_rows
+    covered = np.zeros(p, int)
+    for y0 in range(0, p, rows):
+        y1 = min(y0 + rows, p)
+        covered[y0:y1] += 1
+        for s, ws in enumerate(windows):
+            if ws == p:  # copied: the tile's own rows
+                assert y1 - y0 <= plan.staged_rows
+                continue
+            j0, j1 = tile_source_rows(first[s], ws, taps, y0, y1)
+            assert 0 <= j0 <= j1 < ws and j1 - j0 + 1 <= plan.staged_rows
+            weights = resize_weights(ws, p)
+            for y in range(y0, y1):
+                read = [first[s, y] + k for k in range(taps)
+                        if first[s, y] + k < ws]
+                assert j0 <= min(read) and max(read) <= j1
+                nonzero = np.nonzero(weights[y])[0]
+                assert j0 <= nonzero.min() and nonzero.max() <= j1
+    np.testing.assert_array_equal(covered, 1)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    assert plan.smem_bytes <= 227 * 1024
+    if p == 224:  # the flagship's calls fill the 132 SMs twice over
+        assert rows > 1 and b * -(-p // rows) >= 16 * 132
+
+
+@pytest.mark.parametrize("shape,windows,match", [
+    ((12, H, W, 3, P, 1), (0, 32), "≥ 1"),
+    ((12, H, W, 3, P, 1), (32, 81), "exceeds image"),
+    ((12, H, W, 3, 0, 1), (24, 32), "patch_size must be ≥ 1"),
+    ((1, 30000, 30000, 3, 224, 4), (20000,),
+     "exceeds the kernel's 232448 bytes"),
+    ((65536, H, W, 3, P, 1), (24, 32), "at most 65535 examples"),
+])
+def test_rescale_plan_refuses_what_the_kernel_does_not_take(shape, windows,
+                                                           match):
+    """The plan raises the wrapper's error (the wrapper calls it before a
+    launch)."""
+    with pytest.raises(ValueError, match=match):
+        sampler_plan(*shape, windows)
 
 
 # ---------------------------------------------------------------- the app
