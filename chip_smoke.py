@@ -25,8 +25,10 @@ Phases, each of which fails the run if it fails:
              ``check_norm_kernels``), each shape's tiling and its
              clusters on the card at once printed, the times weighted by
              each shape's launches in a step; the density kernel
-             against its plain version at 16 maps of 4096 slots and at one map of 12 865
-             heads (384×512, σ = 8; tolerance at ``_check_density``); the
+             against its plain version at 16 maps of 4096 slots, at the
+             preprocessing path's one map (phase 7's most crowded image)
+             and at one map of 12 865 heads (384×512, σ = 8; tolerance at
+             ``_check_density``), each beside its bound; the
              copy probe in both launch layouts at both of the bandwidth
              tool's shapes, bit for bit; all timed with CUDA events (the
              copy kernel in phase 9), beside their bound and, where one
@@ -113,9 +115,6 @@ L2_IMAGES = 16
 # float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# The H100 SXM's highest SM clock: a sleep of 2·t·SM_CLOCK_HZ cycles lasts
-# at least 2·t.
-SM_CLOCK_HZ = 1.98e9
 FLAGSHIP = dict(  # bench.py's flagship crowd configuration
     trial_name="chip_smoke", batch_size=120, image_patch_size=224,
     model_base_width=64, latent_dimension=100, labeled_dataset_size=16,
@@ -170,29 +169,12 @@ def log(*args):
 
 
 def cuda_ms(fn, iters: int, queued: bool = False) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events over ``iters``
-    calls after two warm-up calls. ``queued``: the timed calls wait on the
-    card behind a sleep kernel that outlasts their enqueueing, so that they
-    run back to back whatever the host's time per call (a sampler call
-    takes the host about as long as the card)."""
-    for _ in range(2):
-        fn()
-    if queued:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        enqueue_s = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(2 * enqueue_s * SM_CLOCK_HZ))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """``srgan_tpu_torch.utils.timing.cuda_ms``, imported at the first
+    call: the port is imported only after ``main``'s checks. ``queued``
+    for a call that takes the host about as long as the card (a sampler
+    call)."""
+    from srgan_tpu_torch.utils.timing import cuda_ms as timed
+    return timed(fn, iters, queued)
 
 
 def least_ms(bytes_moved: float, ops: float):
@@ -649,18 +631,29 @@ def check_density_kernel(dev):
     """Phase 2, density: the kernel against ``density_maps_plain`` on the
     card, σ = 8 on 384×512 canvases (the preprocessor's default size and
     the flagship's images): B = 16 maps of N = 4096 slots with counts
-    uniform in [0, 4096], and one map of 12 865 heads (UCF-QNRF's most
-    crowded image). Tolerance at ``_check_density``. Returns the kernel
-    table entry of the B = 16 case (launches filled in by the
-    preprocessing phase)."""
-    from srgan_tpu_torch.ops.density import density_maps, density_maps_plain
+    uniform in [0, 4096]; the preprocessing path's shape, one map of the
+    most crowded image of phase 7's database (``raw_draws``); and one map
+    of 12 865 heads (UCF-QNRF's most crowded image). Tolerance at
+    ``_check_density``. Each case's kernel time (queued behind a sleep
+    kernel, as a B = 1 call takes the host longer than the card) and its
+    share of the bound. Returns the kernel table entry of the B = 16 case
+    with the path shape's ``path_ms`` and ``path_bound_ms`` (launches
+    filled in by the preprocessing phase)."""
+    from srgan_tpu_torch.ops.density import (TILE, density_maps,
+                                             density_maps_plain, density_plan)
     h, w, sigma = 384, 512, 8.0
     rng = np.random.default_rng(7)
-    cases = [("16 x 4096 slots", 16, 4096, rng.integers(0, 4097, 16)),
-             ("1 x 12865 heads", 1, 12865, np.array([12865]))]
+    b16 = rng.integers(0, 4097, 16)
+    crowded = max((xy for *_, xy in raw_draws()), key=len)
+    cases = [("16 x 4096 slots", _density_inputs(rng, 16, 4096, b16, h, w),
+              b16),
+             (f"path, 1 x {len(crowded)} heads", resized_heads(crowded)[None],
+              np.array([len(crowded)])),
+             ("1 x 12865 heads", _density_inputs(rng, 1, 12865, [12865], h, w),
+              np.array([12865]))]
     entry = None
-    for name, b, n, counts in cases:
-        heads_np = _density_inputs(rng, b, n, counts, h, w)
+    for name, heads_np, counts in cases:
+        b, n, _ = heads_np.shape
         heads = torch.from_numpy(heads_np).to(dev)
         counts_t = torch.from_numpy(counts.astype(np.int32)).to(dev)
         call = dict(height=h, width=w)
@@ -671,23 +664,27 @@ def check_density_kernel(dev):
             raise AssertionError(f"density kernel returned {got.dtype} "
                                  f"{list(got.shape)}")
         err = _check_density(f"density kernel [{name}]", got, want, counts)
-        t_kernel, t_plain = paired_ms(
-            lambda: density_maps_plain(heads, counts_t, sigma, **call),
-            lambda: density_maps(heads, counts_t, sigma, **call), 10,
-            plain_iters=1)
+
+        def plain():
+            return density_maps_plain(heads, counts_t, sigma, **call)
+        t_plain = cuda_ms(plain, 1)
+        t_kernel = cuda_ms(lambda: density_maps(heads, counts_t, sigma,
+                                                **call), 20, queued=True)
+        t_plain = (t_plain + cuda_ms(plain, 1)) / 2
         # Heads and counts read once, the maps written once; two float32
         # operations (the separable form's multiply-add) per (pixel, valid
         # head) pair whose term is not 0, the least work of the function.
-        # The kernel evaluates every pair of the canvas.
-        pairs = h * w * int(counts.sum())
         needed = _nonzero_pairs(heads_np, counts, h, w, sigma)
         bound_ms, bound_by = least_ms(b * n * 8 + b * 4 + b * h * w * 4,
                                       2 * needed)
+        plan = density_plan(h, w, sigma, b, n)
         log(f"kernel density_maps [{name}, sigma {sigma:g}] -> "
             f"{list(got.shape)}: max|err| {err:g}, kernel {t_kernel:.4f} ms "
-            f"({pairs / t_kernel / 1e9:.2f} T (pixel, head) pairs/s over "
-            f"{pairs:.4g} evaluated, {needed:.4g} of them nonzero), plain "
-            f"{t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            f"({TILE}x{TILE} tiles, {plan.splits} runs of slots, "
+            f"cull radius {plan.radius}; "
+            f"{needed:.4g} nonzero (pixel, head) pairs), plain "
+            f"{t_plain:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / t_kernel:.1f}% of the bound")
         if entry is None:
             # No single PyTorch call renders normalized Gaussians.
             entry = {"name": "density_maps", "route": "cuda",
@@ -696,6 +693,8 @@ def check_density_kernel(dev):
                      "launches": None, "max_abs_err": err, "ms": t_kernel,
                      "plain_ms": t_plain, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None}
+        elif name.startswith("path"):
+            entry["path_ms"], entry["path_bound_ms"] = t_kernel, bound_ms
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         del heads, got, want
         torch.cuda.empty_cache()
@@ -1010,32 +1009,43 @@ def train_main_path(settings, dev, card: str) -> dict:
     return launches
 
 
+def raw_draws():
+    """The raw database's draws from seed 0, in order: (split, i, the
+    image's 24×32 noise, its heads (x, y) float64) per image, up to 2000
+    heads each; the test split's first image has none."""
+    rng = np.random.default_rng(0)
+    for split, count in RAW_SPLITS.items():
+        for i in range(count):
+            small = rng.integers(0, 256, (24, 32, 3)).astype(np.uint8)
+            n = 0 if (split, i) == ("test", 0) else int(rng.integers(0, 2001))
+            yield split, i, small, np.stack(
+                [rng.uniform(0, RAW_W, n), rng.uniform(0, RAW_H, n)], -1)
+
+
+def resized_heads(xy):
+    """Raw (x, y) heads → (y, x) on the 384×512 canvas, in float32 as the
+    preprocessor scales them."""
+    xy = xy.astype(np.float32)
+    return np.stack([xy[:, 1] * (384 / RAW_H), xy[:, 0] * (512 / RAW_W)], -1)
+
+
 def synthesize_raw_database(root: str):
-    """A raw UCF-QNRF-layout database from seed 0: per split
+    """A raw UCF-QNRF-layout database of ``raw_draws``: per split
     (``RAW_SPLITS``) a directory of 768×1024 JPEGs ``img_<i>.jpg`` and
-    ``img_<i>_ann.mat`` annotations (``annPoints``, [M, 2] (x, y)) of up
-    to 2000 heads; the test split's first image has none. Returns
-    {split: [heads (x, y) float32 per image]}."""
+    ``img_<i>_ann.mat`` annotations (``annPoints``, [M, 2] (x, y)).
+    Returns {split: [heads (x, y) float32 per image]}."""
     from PIL import Image
     from scipy.io import savemat
-    rng = np.random.default_rng(0)
-    heads = {}
-    for split, count in RAW_SPLITS.items():
+    heads = {split: [] for split in RAW_SPLITS}
+    for split, i, small, xy in raw_draws():
         raw = os.path.join(root, split)
-        os.makedirs(raw)
-        heads[split] = []
-        for i in range(count):
-            # Smooth pixels (upsampled noise): JPEG-sized like a photo.
-            small = rng.integers(0, 256, (24, 32, 3)).astype(np.uint8)
-            Image.fromarray(small).resize((RAW_W, RAW_H), Image.BILINEAR
-                                          ).save(os.path.join(
-                                              raw, f"img_{i:04d}.jpg"))
-            n = 0 if (split, i) == ("test", 0) else int(rng.integers(0, 2001))
-            xy = np.stack([rng.uniform(0, RAW_W, n), rng.uniform(0, RAW_H, n)],
-                          -1)
-            savemat(os.path.join(raw, f"img_{i:04d}_ann.mat"),
-                    {"annPoints": xy})
-            heads[split].append(xy.astype(np.float32))
+        os.makedirs(raw, exist_ok=True)
+        # Smooth pixels (upsampled noise): JPEG-sized like a photo.
+        Image.fromarray(small).resize((RAW_W, RAW_H), Image.BILINEAR
+                                      ).save(os.path.join(
+                                          raw, f"img_{i:04d}.jpg"))
+        savemat(os.path.join(raw, f"img_{i:04d}_ann.mat"), {"annPoints": xy})
+        heads[split].append(xy.astype(np.float32))
     return heads
 
 
@@ -1084,9 +1094,7 @@ def preprocess_main_path(dev, root: str) -> tuple:
         n = max(1, max(len(h) for h in split_heads))
         padded = np.zeros((len(split_heads), n, 2), np.float32)
         for i, xy in enumerate(split_heads):
-            # raw (x, y) → resized (y, x), in float32 as the preprocessor
-            padded[i, :len(xy)] = np.stack([xy[:, 1] * (384 / RAW_H),
-                                            xy[:, 0] * (512 / RAW_W)], -1)
+            padded[i, :len(xy)] = resized_heads(xy)
         counts = np.array([len(h) for h in split_heads], np.int32)
         np.testing.assert_array_equal(db.head_counts, counts)
         want = density_maps_plain(torch.from_numpy(padded).to(dev),
@@ -1095,20 +1103,13 @@ def preprocess_main_path(dev, root: str) -> tuple:
         worst = max(worst, _check_density(
             f"preprocessed {split} maps", torch.from_numpy(
                 db.density_maps).to(dev), want, counts))
-    # The kernel's own time on the most crowded image of the database.
-    xy = max((h for split in heads.values() for h in split), key=len)
-    one = torch.from_numpy(np.stack([xy[:, 1] * (384 / RAW_H),
-                                     xy[:, 0] * (512 / RAW_W)], -1)[None]
-                           ).to(dev)
-    one_count = torch.tensor([len(xy)], dtype=torch.int32, device=dev)
-    t_one = cuda_ms(lambda: density_maps(one, one_count, 8.0, height=384,
-                                         width=512), 10)
     log(f"preprocess: {images} raw 768x1024 images ({t_write:.1f} s to "
         f"synthesize) -> 384x512 in {elapsed:.2f} s, "
         f"{1e3 * elapsed / images:.2f} ms per image (JPEG decode and "
-        f"resize, the density label on the card, the npz write); density kernel launches "
-        f"{launches}; maps vs plain on the card max|err| {worst:g}; the "
-        f"kernel alone on the {len(xy)}-head image {t_one:.4f} ms")
+        f"resize, the density label on the card, the npz write); density "
+        f"kernel launches {launches}; maps vs plain on the card max|err| "
+        f"{worst:g} (the kernel alone on the most crowded image: phase 2's "
+        f"path_ms)")
     return db_dir, launches
 
 

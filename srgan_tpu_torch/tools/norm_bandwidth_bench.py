@@ -8,16 +8,19 @@ CUDA card, the same bfloat16 copy in these variants:
 
   copy_          — ``torch.Tensor.copy_``, the library's copy (the JAX
                    tool's ``xla`` variant)
-  per_example    — the CUDA kernel of ``csrc/copy.cu``, one group of
-                   blocks per example's [HW, C] slab
+  per_example    — the CUDA kernel of ``csrc/copy.cu``, its work cut at
+                   each example's [HW, C] slab
   batch_strided  — the same kernel over flat chunks of ``rows`` rows of
-                   the [B·HW, C] view, one block per chunk
+                   the [B·HW, C] view
 
 at two shapes: the JAX tool's own, [120, 12544, 64] (its [120·6272, 128]
 without the TPU's fold of two pixels into one 128-lane row, the same
 bytes), and [360, 12544, 64], the largest norm of the flagship step (D's
 first norm over the 3B batch). Every variant's output is checked to equal
-its input bit for bit. Prints one JSON line per variant::
+its input bit for bit. Every variant writes into one output reused for all
+its calls, and its timed calls wait behind a sleep kernel on the card, so
+that the times compare the copies on the device and not the host's time
+per call. Prints one JSON line per variant::
 
     python -m srgan_tpu_torch.tools.norm_bandwidth_bench [--reps 30]
 
@@ -38,17 +41,22 @@ import torch
 
 from srgan_tpu_torch.ops import _build
 from srgan_tpu_torch.utils.device import default_device
+from srgan_tpu_torch.utils.timing import cuda_ms
 
 SHAPES = ((120, 12544, 64), (360, 12544, 64))
 LAYOUTS = ("per_example", "batch_strided")
-# Rows of the [B·HW, C] view per block: the JAX tool's chunks of 512 to
-# 12544 lane-folded rows, in unfolded rows (the same bytes per block).
+# Rows of the [B·HW, C] view a segment: the JAX tool's chunks of 512 to
+# 12544 lane-folded rows, in unfolded rows (the same bytes a segment).
 ROWS = (1024, 2048, 6272, 12544, 25088)
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = _build.load_library("copy")
+    return declare(_build.load_library("copy"))
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the C signatures of ``csrc/copy.cu`` declared."""
     lib.srgan_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_int, ctypes.c_longlong,
                                ctypes.c_longlong, ctypes.c_void_p]
@@ -74,22 +82,21 @@ def _segments(x: torch.Tensor, layout: str, rows: int):
     return b * hw // rows, rows * row_bytes
 
 
-def copy(x: torch.Tensor, layout: str, rows: int = 0) -> torch.Tensor:
+def copy(x: torch.Tensor, layout: str, rows: int = 0,
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A copy of ``x`` [B, HW, C] (contiguous) made in ``layout``, with
-    ``rows`` rows of the [B·HW, C] view per block for "batch_strided"."""
+    ``rows`` rows of the [B·HW, C] view a segment for "batch_strided";
+    into ``out`` (contiguous, like ``x``) where given."""
     segments, seg_bytes = _segments(x, layout, rows)
     if x.device.type == "cpu":
-        return copy_plain(x, layout, rows)
+        return copy_plain(x, layout, rows, out)
     if x.device.type != "cuda" or not x.is_contiguous():
         raise ValueError(f"copy runs on a contiguous CUDA or CPU tensor, "
                          f"got one on {x.device}")
     if seg_bytes % 16:
         raise ValueError(f"each {layout} segment is {seg_bytes} bytes; the "
                          f"kernel copies whole 16-byte vectors")
-    if layout == "per_example" and segments > 65535:
-        raise ValueError(f"per_example takes at most 65535 examples, got "
-                         f"{segments}")
-    out = torch.empty_like(x)
+    out = _output(x, out)
     if (x.data_ptr() | out.data_ptr()) % 16:
         raise ValueError("the copy kernel needs 16-byte aligned tensors")
     lib = _library()
@@ -106,46 +113,43 @@ def copy(x: torch.Tensor, layout: str, rows: int = 0) -> torch.Tensor:
 copy.launches = 0
 
 
-def copy_plain(x: torch.Tensor, layout: str, rows: int = 0) -> torch.Tensor:
+def _output(x: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    if out is None:
+        return torch.empty_like(x)
+    if (out.shape != x.shape or out.dtype != x.dtype
+            or out.device != x.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {x.dtype} "
+                         f"{list(x.shape)} tensor on {x.device}")
+    return out
+
+
+def copy_plain(x: torch.Tensor, layout: str, rows: int = 0,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The same copy in plain PyTorch, on any device: one slab assignment
     per example (per_example) or per chunk of rows (batch_strided)."""
     segments, _ = _segments(x, layout, rows)
-    out = torch.empty_like(x)
+    out = _output(x, out)
     src, dst = x.view(segments, -1), out.view(segments, -1)
     for i in range(segments):
         dst[i] = src[i]
     return out
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device ms of ``fn`` over ``reps`` calls, by CUDA events, after
-    two warm-up calls."""
-    for _ in range(2):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def time_variant(x: torch.Tensor, variant: str, rows: int = 0,
                  reps: int = 30) -> dict:
     """One JSON record: the variant's ms and GB/s (read + write) on ``x``,
-    after checking that its output equals ``x`` bit for bit."""
+    after checking that its output equals ``x`` bit for bit. Every call
+    writes into the same output."""
+    out = torch.empty_like(x)
     if variant == "copy_":
-        out = torch.empty_like(x)
         fn = functools.partial(out.copy_, x)
     else:
-        fn = functools.partial(copy, x, variant, rows)
+        fn = functools.partial(copy, x, variant, rows, out)
     got = fn()
     if not torch.equal(got, x):
         raise AssertionError(f"{variant} (rows {rows}) did not copy x "
                              f"exactly")
-    ms = cuda_ms(fn, reps)
+    ms = cuda_ms(fn, reps, queued=True)
     moved = 2 * x.numel() * x.element_size()
     return {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
             "variant": variant, "rows_per_block": rows, "ms": ms,

@@ -29,19 +29,17 @@ default plan's, one line each.
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
+import importlib.util
 import itertools
 import json
 import os
 import subprocess
 import sys
-import time
 
 SETS = 8
 CALLS = 24
-# The H100 SXM's highest SM clock: a sleep of 2·t·SM_CLOCK_HZ cycles lasts
-# at least 2·t.
-SM_CLOCK_HZ = 1.98e9
 # (name, N, H, W, P, B, windows of the rescale)
 GEOMETRIES = [("flagship", 1000, 384, 512, 224, 120, (168, 224, 280)),
               ("ragged", 3, 80, 97, 30, 300, (19, 30, 45))]
@@ -77,25 +75,21 @@ def _device_ms(call, draws) -> float:
     after two warm-up calls, queued behind a sleep kernel that outlasts
     their enqueueing, so that they run back to back on the card whatever
     the host's time per call."""
-    import torch
     turn = itertools.cycle(draws)
-    for _ in range(2):
-        call(next(turn))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(CALLS):
-        call(next(turn))
-    enqueue_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(2 * enqueue_s * SM_CLOCK_HZ))
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(CALLS):
-        call(next(turn))
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / CALLS
+    return _timing().cuda_ms(lambda: call(next(turn)), CALLS, queued=True)
+
+
+@functools.cache
+def _timing():
+    """``srgan_tpu_torch/utils/timing.py`` of the checkout that holds this
+    file, loaded by its path: ``run`` may import the package from an older
+    checkout, whose kernels are then timed the same way as this one's."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "utils", "timing.py")
+    spec = importlib.util.spec_from_file_location("_sampler_timing", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def sweep() -> None:

@@ -38,3 +38,20 @@ def test_the_rows_of_the_jax_tool_divide_both_shapes():
 def test_measuring_refuses_the_cpu():
     with pytest.raises(ValueError, match="CUDA card"):
         bandwidth.run(shapes=[(2, 8, 64)], device=torch.device("cpu"))
+
+
+@pytest.mark.parametrize("layout,rows", [("per_example", 0),
+                                         ("batch_strided", 64)])
+def test_plain_copy_writes_into_a_given_output(layout, rows):
+    """The tool times every variant into one reused output."""
+    x = torch.randn((3, 192, 64), generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16)
+    out = torch.full_like(x, float("nan"))
+    got = bandwidth.copy(x, layout, rows, out)
+    assert got.data_ptr() == out.data_ptr() and torch.equal(out, x)
+    for bad in (torch.empty((3, 192, 32), dtype=torch.bfloat16),
+                torch.empty_like(x, dtype=torch.float32),
+                torch.empty((3, 64, 192), dtype=torch.bfloat16).mT):
+        with pytest.raises(ValueError, match="out must be"):
+            bandwidth.copy(x, layout, rows, bad)
+

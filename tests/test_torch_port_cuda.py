@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from srgan_tpu_torch.ops import density
 from srgan_tpu_torch.ops import fused_norm as fn
 from srgan_tpu_torch.ops import patches
 from srgan_tpu_torch.ops.density import density_maps, density_maps_plain
@@ -346,10 +347,22 @@ def test_fused_norm_launchers_reject_what_the_kernels_do_not_take():
 
 # The density kernel against its plain version: (B, N, H, W, σ). Heads
 # over the canvas widened by 16 px on each side; slots past each count
-# hold NaN, which neither may read. Tolerance 1e-6 + 1e-4·|want| per
-# element (the kernel's __expf and sum order against torch.exp).
+# hold NaN, which neither may read. A single map takes all N heads: the
+# preprocessing path's shape (2000 heads on 384×512) and UCF-QNRF's most
+# crowded image (12 865). Tolerance 1e-6 + 1e-4·|want| per element (the
+# kernel's separable product and sum order against torch.exp of the sum),
+# each map's sum within 1e-4·max(count, 1) of its count.
 DENSITY_CASES = [(2, 16, 32, 48, 2.0), (3, 300, 61, 77, 4.0),
-                 (1, 0, 16, 16, 2.0), (2, 700, 40, 600, 8.0)]
+                 (1, 0, 16, 16, 2.0), (2, 700, 40, 600, 8.0),
+                 (1, 2000, 384, 512, 8.0), (1, 12865, 384, 512, 8.0)]
+
+
+def _assert_density_within(got, want, counts=None):
+    assert bool(((got - want).abs() <= 1e-6 + 1e-4 * want.abs()).all())
+    if counts is not None:
+        sums = got.double().sum(dim=(1, 2)).cpu()
+        c = torch.as_tensor(counts, dtype=torch.float64)
+        assert bool(((sums - c).abs() <= 1e-4 * c.clamp_min(1.0)).all())
 
 
 @pytest.mark.parametrize("b,n,h,w,sigma", DENSITY_CASES)
@@ -359,6 +372,8 @@ def test_density_kernel_equals_plain(b, n, h, w, sigma):
     heads = np.stack([rng.uniform(-16, h + 16, (b, n)),
                       rng.uniform(-16, w + 16, (b, n))], -1).astype(np.float32)
     counts = rng.integers(0, n + 1, b).astype(np.int32)
+    if b == 1:
+        counts[:] = n
     for i, c in enumerate(counts):
         heads[i, c:] = np.nan
     heads_t = torch.from_numpy(heads).to(dev)
@@ -369,7 +384,84 @@ def test_density_kernel_equals_plain(b, n, h, w, sigma):
     assert density_maps.launches == before + 1
     want = density_maps_plain(heads_t, counts_t, sigma, height=h, width=w)
     assert got.shape == (b, h, w) and bool(torch.isfinite(got).all())
-    assert bool(((got - want).abs() <= 1e-6 + 1e-4 * want.abs()).all())
+    _assert_density_within(got, want)
+
+
+def _in_runs(heads, counts, sigma, h, w, splits):
+    """The kernel's maps with each map's valid slots in ``splits`` runs."""
+    plan = density.DensityPlan(density.cull_radius(sigma), splits)
+    return density._launch_density(heads, counts, sigma, h, w, plan)
+
+
+@pytest.mark.parametrize("sigma", [2.0, 8.0])
+def test_density_kernel_culls_at_the_radius(sigma):
+    """Heads just inside, at and just outside the cull radius of tile
+    edges (the 64 px ones and the canvas's), and 16 px outside the canvas
+    (weights up to 1e12 at σ = 2): the maps equal the plain version's
+    within the tolerance, with the slots in one run and in 3 runs, summed
+    after."""
+    dev = torch.device("cuda")
+    h, w = 128, 160
+    r = density.cull_radius(sigma)
+    edges = [0.0, 63.0, 64.0, 127.0, 128.0, 159.0]
+    near = [e + s * (r + d) for e in edges for s in (-1, 1)
+            for d in (-0.5, 0.0, 0.5)]
+    ys = [v for v in near if -17 <= v <= h + 16] + [-16.0, h + 15.0]
+    xs = [v for v in near if -17 <= v <= w + 16] + [-16.0, w + 15.0]
+    pts = [(y, 40.0) for y in ys] + [(70.0, x) for x in xs]
+    heads = torch.tensor([pts], dtype=torch.float32, device=dev)
+    counts = torch.tensor([len(pts)], dtype=torch.int32, device=dev)
+    want = density_maps_plain(heads, counts, sigma, height=h, width=w)
+    for splits in (1, 3):
+        got = _in_runs(heads, counts, sigma, h, w, splits)
+        assert bool(torch.isfinite(got).all())
+        _assert_density_within(got, want)
+
+
+def test_density_kernel_nan_and_inf_heads_follow_the_plain_version():
+    """A NaN coordinate in a valid slot makes its whole map NaN, in the
+    kernel as in the plain version, also where the other coordinate lies
+    far past the cull radius; a head at ±inf adds 0; the other maps of the
+    batch stay as they are."""
+    dev = torch.device("cuda")
+    h, w, sigma = 40, 70, 2.0
+    rng = np.random.default_rng(9)
+    heads = np.stack([rng.uniform(0, h, (5, 6)), rng.uniform(0, w, (5, 6))],
+                     -1).astype(np.float32)
+    heads[0, 2] = [np.nan, 10.0]
+    heads[1, 3] = [-1e6, np.nan]
+    heads[2, 0] = [np.inf, 10.0]
+    heads[2, 1] = [5.0, -np.inf]
+    heads[2, 2] = [np.inf, -np.inf]
+    heads[3, 4] = [-np.inf, np.inf]
+    counts = np.array([6, 6, 6, 6, 6], np.int32)
+    heads_t = torch.from_numpy(heads).to(dev)
+    counts_t = torch.from_numpy(counts).to(dev)
+    want = density_maps_plain(heads_t, counts_t, sigma, height=h, width=w)
+    assert bool(want[:2].isnan().all()) and bool(want[2:].isfinite().all())
+    for got in (_in_runs(heads_t, counts_t, sigma, h, w, 1),
+                _in_runs(heads_t, counts_t, sigma, h, w, 4),
+                density_maps(heads_t, counts_t, sigma, height=h, width=w)):
+        assert torch.equal(got.isnan(), want.isnan())
+        _assert_density_within(got[2:], want[2:], [3, 5, 6])
+
+
+def test_density_kernel_repeats_bit_for_bit():
+    """Two calls, also where the plan cuts the slots into runs (192
+    tiles of 64 × 64: 2 runs)."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    heads = np.stack([rng.uniform(-16, 400, (4, 3000)),
+                      rng.uniform(-16, 528, (4, 3000))],
+                     -1).astype(np.float32)
+    heads_t = torch.from_numpy(heads).to(dev)
+    counts_t = torch.tensor([3000, 1, 0, 2500], dtype=torch.int32, device=dev)
+    assert density.density_plan(384, 512, 8.0, 4, 3000).splits == 2
+    first = density_maps(heads_t, counts_t, 8.0, height=384, width=512)
+    second = density_maps(heads_t, counts_t, 8.0, height=384, width=512)
+    assert torch.equal(first, second)
+    _assert_density_within(first, density_maps_plain(
+        heads_t, counts_t, 8.0, height=384, width=512), [3000, 1, 0, 2500])
 
 
 def test_density_wrapper_rejects_what_the_kernel_does_not_take():
@@ -380,20 +472,45 @@ def test_density_wrapper_rejects_what_the_kernel_does_not_take():
         density_maps(heads, counts.long(), 2.0, height=8, width=8)
     with pytest.raises(ValueError, match="float32"):
         density_maps(heads.double(), counts, 2.0, height=8, width=8)
+    with pytest.raises(ValueError, match="sigma"):
+        density_maps(heads, counts, 0.0, height=8, width=8)
+    # Plans the kernel does not take: a radius that is not σ's, runs of
+    # slots outside [1, 64].
+    plan = density.density_plan(8, 8, 2.0, 2, 4)
+    for bad in (plan._replace(radius=plan.radius - 1),
+                plan._replace(radius=plan.radius + 1),
+                plan._replace(splits=0), plan._replace(splits=65)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            density._launch_density(heads, counts, 2.0, 8, 8, bad)
 
 
-@pytest.mark.parametrize("layout,rows", [("per_example", 0),
-                                         ("batch_strided", 64),
-                                         ("batch_strided", 96)])
-def test_copy_kernel_is_exact(layout, rows):
+# (shape, layout, rows): segments of 24 KB (three 8 KB units), of 8 KB (one),
+# of 12, 75 and 37.5 KB (whole units and a part); of exactly 16 bytes,
+# shorter than a unit; and 70 000 of them, more than the 65 535 of a grid's
+# y dimension.
+COPY_CASES = [((3, 192, 64), "per_example", 0),
+              ((3, 192, 64), "batch_strided", 64),
+              ((3, 192, 64), "batch_strided", 96),
+              ((2, 600, 64), "per_example", 0),
+              ((2, 600, 64), "batch_strided", 300),
+              ((4, 1, 8), "per_example", 0),
+              ((2, 4, 8), "batch_strided", 1),
+              ((70000, 1, 8), "per_example", 0)]
+
+
+@pytest.mark.parametrize("shape,layout,rows", COPY_CASES)
+def test_copy_kernel_is_exact(shape, layout, rows):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
-    x = torch.randn((3, 192, 64), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
     before = bandwidth.copy.launches
     got = bandwidth.copy(x, layout, rows)
+    out = torch.full_like(x, float("nan"))
+    into = bandwidth.copy(x, layout, rows, out)
     torch.cuda.synchronize()
-    assert bandwidth.copy.launches == before + 1
-    assert torch.equal(got, x)
+    assert bandwidth.copy.launches == before + 2
+    assert into.data_ptr() == out.data_ptr()
+    assert torch.equal(got, x) and torch.equal(out, x)
     assert torch.equal(bandwidth.copy_plain(x, layout, rows), x)
 
 

@@ -11,6 +11,7 @@ import torch
 
 from srgan_tpu.ops.density import density_maps as jax_density_maps
 from srgan_tpu.ops.density import density_maps_reference
+from srgan_tpu_torch.ops import density
 from srgan_tpu_torch.ops.density import density_maps
 
 TOL = dict(rtol=1e-4, atol=1e-6)
@@ -128,3 +129,103 @@ def test_cpu_tensors_launch_no_kernel():
     before = density_maps.launches
     _ours(heads, counts, 2.0, 32, 48)
     assert density_maps.launches == before
+
+
+# The render kernel's launch plan and its culling, on the CPU: the kernel
+# itself runs only on the card (tests/test_torch_port_cuda.py).
+
+@pytest.mark.parametrize("h,w,sigma,b,n,splits,radius", [
+    (384, 512, 8.0, 16, 4096, 3, 116),   # 768 blocks, runs of ≤ 1536 slots
+    (384, 512, 8.0, 1, 2000, 7, 116),    # 48 blocks; runs of ≥ 256 slots
+    (384, 512, 8.0, 1, 12865, 9, 116),   # runs of ≤ 1536 slots
+    (384, 512, 8.0, 1, 700, 2, 116),
+    (384, 512, 8.0, 1, 100, 1, 116),
+    (384, 512, 2.0, 4, 1000, 2, 29),     # 192 blocks
+    (384, 512, 8.0, 90, 4096, 1, 116),   # 4320 blocks: no partial maps
+    (128, 192, 4.0, 3, 70000, 46, 58),   # 18 blocks, runs of ≤ 1536 slots
+    (16, 16, 4.0, 1, 70000, 64, 58),     # 1 block: the kernel's 64 runs
+])
+def test_density_plan(h, w, sigma, b, n, splits, radius):
+    plan = density.density_plan(h, w, sigma, b, n)
+    assert plan == density.DensityPlan(radius, splits)
+    assert density.density_plan(h, w, sigma, b, n) is plan  # cached
+
+
+def test_density_plan_refuses_what_the_kernel_does_not_take():
+    for sigma in (0.0, float("inf"), float("nan")):
+        with pytest.raises(ValueError, match="sigma"):
+            density.density_plan(8, 8, sigma, 1, 4)
+    with pytest.raises(ValueError, match="65535"):
+        density.density_plan(8, 8, 2.0, 65536, 4)
+    with pytest.raises(ValueError, match="positive"):
+        density.density_plan(0, 8, 2.0, 1, 4)
+
+
+@pytest.mark.parametrize("sigma,radius", [(2.0, 29), (4.0, 58), (8.0, 116)])
+def test_cull_radius_is_where_float32_exp_reaches_zero(sigma, radius):
+    """exp(−k·R²) is 0 in float32 and exp(−k·(R−1)²), one pixel inside,
+    is not: past R along y or x every term is exactly 0."""
+    k = float(np.float32(0.5) / np.float32(sigma) ** 2)
+    assert density.cull_radius(sigma) == radius
+    at = torch.exp(torch.tensor(-k * radius ** 2, dtype=torch.float32))
+    inside = torch.exp(torch.tensor(-k * (radius - 1) ** 2,
+                                    dtype=torch.float32))
+    assert float(at) == 0.0 and float(inside) > 0.0
+
+
+def _culled_separable(heads, counts, sigma, h, w):
+    """The render kernel's algorithm in plain torch: per 64 × 64 tile,
+    the heads whose ±R box meets the tile (a NaN head always), their
+    ey = w·exp(−dy²k) over the tile's rows and ex = exp(−dx²k) over its
+    columns, zero past R, summed as outer products. Also asserts that the
+    heads the tile drops add exactly 0 there."""
+    k = float(np.float32(0.5) / np.float32(sigma) ** 2)
+    r = density.cull_radius(sigma)
+    tile = density.TILE
+    yy = torch.arange(h, dtype=torch.float32)
+    xx = torch.arange(w, dtype=torch.float32)
+    b, n, _ = heads.shape
+    out = torch.zeros((b, h, w))
+    for i in range(b):
+        c = min(max(int(counts[i]), 0), n)
+        hy, hx = heads[i, :c, 0], heads[i, :c, 1]
+        mass = (torch.exp(-((yy - hy[:, None]) ** 2) * k).sum(1)
+                * torch.exp(-((xx - hx[:, None]) ** 2) * k).sum(1))
+        wgt = 1.0 / mass.clamp_min(1e-12)
+        for y0 in range(0, h, tile):
+            for x0 in range(0, w, tile):
+                y1, x1 = min(y0 + tile, h) - 1, min(x0 + tile, w) - 1
+                far = ((y0 - hy > r) | (hy - y1 > r) | (x0 - hx > r)
+                       | (hx - x1 > r))
+                keep = ~far | hy.isnan() | hx.isnan()
+                dy = yy[y0:y1 + 1] - hy[:, None]
+                dx = xx[x0:x1 + 1] - hx[:, None]
+                ey = torch.where(dy.abs() > r, 0.0,
+                                 wgt[:, None] * torch.exp(-(dy * dy) * k))
+                ex = torch.where(dx.abs() > r, 0.0, torch.exp(-(dx * dx) * k))
+                assert not (ey[~keep].T @ ex[~keep]).any()
+                out[i, y0:y1 + 1, x0:x1 + 1] = ey[keep].T @ ex[keep]
+    return out
+
+
+@pytest.mark.parametrize("sigma", [2.0, 3.0])
+@pytest.mark.parametrize("h,w", [(70, 90), (61, 77), (130, 150)])
+def test_culled_separable_form_equals_plain(sigma, h, w):
+    """The culling is exact and the separable form within the kernel's
+    tolerance: heads inside the canvas, up to 16 px outside (weights up to
+    1e12 at σ = 2) and far outside (past R), on canvases of 2 × 2 and
+    3 × 3 tiles, none a whole number of tiles."""
+    rng = np.random.default_rng(31)
+    inside = np.stack([rng.uniform(0, h, 20), rng.uniform(0, w, 20)], -1)
+    near = np.stack([rng.uniform(-16, h + 16, 20),
+                     rng.uniform(-16, w + 16, 20)], -1)
+    far = np.array([[-200.0, 30.0], [35.0, w + 150.0], [-90.0, -90.0],
+                    [h + 40.0, 10.0]])
+    heads = np.concatenate([inside, near, far])[None].astype(np.float32)
+    heads = np.concatenate([heads, heads[:, ::-1]])
+    counts = np.array([heads.shape[1], 25], np.int32)
+    heads_t, counts_t = torch.from_numpy(heads), torch.from_numpy(counts)
+    got = _culled_separable(heads_t, counts_t, sigma, h, w)
+    want = density.density_maps_plain(heads_t, counts_t, sigma, height=h,
+                                      width=w)
+    assert bool(((got - want).abs() <= 1e-6 + 1e-4 * want.abs()).all())
