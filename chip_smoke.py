@@ -21,10 +21,11 @@ Phases, each of which fails the run if it fails:
              more on a 16-image source as the earlier runs timed it;
              then the fused GroupNorm + activation forward and backward
              kernels against their plain versions at every norm shape of
-             the flagship step, in bfloat16 (tolerances at
+             the flagship step and of the age SR-GAN step (down to 16
+             rows an example), in bfloat16 (tolerances at
              ``check_norm_kernels``), each shape's tiling and its
              clusters on the card at once printed, the times weighted by
-             each shape's launches in a step; the density kernel
+             each shape's launches in each step; the density kernel
              against its plain version at 16 maps of 4096 slots, at the
              preprocessing path's one map (phase 7's most crowded image)
              and at one map of 12 865 heads (384×512, σ = 8; tolerance at
@@ -40,7 +41,10 @@ Phases, each of which fails the run if it fails:
              ``norm_impl`` "xla" and "pallas", with fixed and with
              rescaled patches: the grid evaluation's density maps and
              counts on the same weights, then one training step (same
-             weights, patches and draws);
+             weights, patches and draws); and for the other apps one
+             coefficient step, one age SR-GAN step under each norm path
+             and one DNN-only step, each then ``predict`` on the
+             validation split (``check_small_app_step``);
 5. train   — ``CrowdExperiment(settings).train()`` at the flagship
              configuration (batch 120, 224-px patches, base width 64,
              bfloat16 compute, a synthetic 384×512 database of 16/16/16
@@ -69,11 +73,30 @@ Phases, each of which fails the run if it fails:
              srgan_tpu_torch.tools.norm_bandwidth_bench``'s ``main``: one
              JSON line per variant, each checked exact and timed; the
              kernel table takes the copy kernel's and ``copy_``'s times
-             from it.
+             from it;
+10. apps   — each through ``<App>Experiment(settings, device="cuda")
+             .train()``, 8 steps with validation every 4 (``APP_FULL``,
+             whose comment lists the cuts): the age SR-GAN at full width
+             under "xla" and "pallas", the ``age_dnn`` preset and driving
+             (frame stack 3) under "pallas", then the coefficient app at
+             the ``coefficient_win`` preset for 200 steps (validation
+             every 100): losses and validation scalars finite, the sample
+             PNGs written, the norm launches asserted
+             (``norm_launches_per_step``); then 20 timed steps of each:
+             ms/step, examples/s and peak allocated memory, and 5 under
+             ``torch.profiler``: the card's busy time a step;
+11. app cli — a synthesized IMDB-WIKI layout (scipy's ``savemat``, PIL
+             JPEGs) through ``python -m srgan_tpu_torch.data.age``'s
+             ``main``, then ``python -m srgan_tpu_torch age`` on its npz
+             at full width under "pallas": 4 steps with checkpoints,
+             restored bit for bit, evaluate-only; and ``coefficient`` and
+             ``driving`` for a few steps, each JSON line's metrics finite.
 
 Prints the kernel table as one JSON line (each kernel's launches counted
 on the path that runs it: the training kernels in the rescale run of
-phase 5, the density kernel in phase 7, the copy kernel in phase 9),
+phase 5, the density kernel in phase 7, the copy kernel in phase 9;
+phases 4, 10 and 11 count the norm launches of each run they drive and
+assert them),
 then the card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": ...}``.
 Exits nonzero, printing no result, without a CUDA card or outside a
@@ -82,6 +105,7 @@ checkout of the repository.
 
 import concurrent.futures
 import functools
+import gc
 import itertools
 import json
 import math
@@ -99,6 +123,7 @@ import torch  # noqa: E402
 REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 8
 TIMED_STEPS = 20
+PROFILED_STEPS = 5
 VALIDATION_PERIOD = 4
 RESCALE = (0.75, 1.0, 1.25)
 # The samplers' check reads from bench.py's flagship split of 1000 images
@@ -141,6 +166,34 @@ if {kind: sum(shape[4 + i] for shape in NORM_SHAPES)
         for i, kind in enumerate(("fwd", "bwd"))} != NORM_LAUNCHES_PER_STEP:
     raise AssertionError("NORM_SHAPES' launches do not sum to "
                          "NORM_LAUNCHES_PER_STEP")
+# Every GroupNorm of the age (and driving) SR-GAN step at full width
+# (64-px images, batch 32, base width 64; the D stages 32²×64, 16²×128,
+# 8²×256 and 4²×512, slope 0.2; G 4²×512 up to 32²×64, ReLU), in
+# NORM_SHAPES' form. The launches follow the flagship's accounting with 4
+# norms in each of D, G and the DNN: D(3B) once each way; D at B forward
+# for the interpolates, D(unlabeled), D(fake) and the DNN, backward
+# through D(interpolates) twice, D(fake) and the DNN; G twice forward and
+# once backward.
+AGE_NORM_SHAPES = (
+    [(96, hw, c, 0.2, 1, 1) for hw, c in ((1024, 64), (256, 128), (64, 256),
+                                         (16, 512))]
+    + [(32, hw, c, 0.2, 4, 4) for hw, c in ((1024, 64), (256, 128),
+                                            (64, 256), (16, 512))]
+    + [(32, hw, c, 0.0, 2, 1) for hw, c in ((16, 512), (64, 256), (256, 128),
+                                            (1024, 64))])
+
+
+def norm_launches_per_step(norms: int, dnn_only: bool = False):
+    """(forward, backward) fused-norm launches of one step of a model set
+    with ``norms`` norms in each of D, G and the DNN: the SR-GAN step
+    runs 7 model forwards and 6 model backwards (above), the DNN-only
+    step one of each through the DNN."""
+    return (norms, norms) if dnn_only else (7 * norms, 6 * norms)
+
+
+if tuple(sum(shape[4 + i] for shape in AGE_NORM_SHAPES)
+         for i in range(2)) != norm_launches_per_step(4):
+    raise AssertionError("AGE_NORM_SHAPES' launches do not sum to 28 and 24")
 # Kernel launches in one validation pass at the flagship (crowd.py
 # validation_summaries): G's sample grid of 4 (5 norms); per model, D and
 # then the DNN, the maps of 16 validation images in chunks of 8
@@ -162,6 +215,25 @@ TINY = dict(batch_size=4, image_patch_size=32, model_base_width=8,
             unlabeled_dataset_size=6, validation_dataset_size=1,
             test_dataset_size=1, crowd_image_height=80, crowd_image_width=96,
             crowd_synthetic_max_heads=12, seed=1, zero_init_heads=False)
+APP_TINY = dict(batch_size=4, age_image_size=32, model_base_width=8,
+                latent_dimension=16, hidden_size=8, labeled_dataset_size=6,
+                unlabeled_dataset_size=8, validation_dataset_size=5,
+                test_dataset_size=3, seed=1, mean_offset=0.5)
+# The age and driving apps at full width: 64-px images (the
+# age_image_size and preprocess_imdb_wiki default), base width 64 and a
+# 100-d latent (the DCGAN defaults), batch 32 (the Settings default),
+# bfloat16 compute. Cut: the synthetic splits to 50 labeled, 1000
+# unlabeled and 100 validation/test examples (the defaults' 50 000
+# unlabeled would spend the time limit generating them on the host).
+APP_FULL = dict(trial_name="chip_smoke_app", batch_size=32,
+                age_image_size=64, model_base_width=64, latent_dimension=100,
+                compute_dtype="bfloat16", labeled_dataset_size=50,
+                unlabeled_dataset_size=1000, validation_dataset_size=100,
+                test_dataset_size=100, seed=0, summary_step_period=1,
+                steps_to_run=STEPS, validation_step_period=VALIDATION_PERIOD)
+# The image apps' model on the command line: full width, "pallas".
+APP_CLI_MODEL = dict(norm_impl="pallas", compute_dtype="bfloat16",
+                     model_base_width=64, latent_dimension=100)
 
 
 def log(*args):
@@ -433,13 +505,130 @@ def _assert_within(name, got, want, bound):
     return float(err.max())
 
 
+def _check_norm_shape(dev, gen, b, hw, c, slope, per_step, library=False,
+                      queued=False):
+    """The fused norm's forward and backward kernels against their plain
+    versions at x [b, hw, c] bfloat16 (tolerances at
+    ``check_norm_kernels``), each timed beside the plain version and its
+    bound (``queued`` as in ``cuda_ms``), its tiling logged with
+    ``per_step`` (forward, backward) launches and, ``queued``, the
+    host's time to enqueue one wrapper call. Returns {"err", "ms",
+    "bound"} by kind, and with ``library`` the library call's ms."""
+    from srgan_tpu_torch.ops import fused_norm as fn
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    x = (randn(b, hw, c) + 0.5).to(torch.bfloat16)
+    dy = randn(b, hw, c).to(torch.bfloat16)
+    scale = 1.0 + 0.1 * randn(c)
+    bias = 0.1 * randn(c)
+    fwd_args = (x, scale, bias, 32, slope, 1e-6)
+    y, mean, rstd = fn._launch_fwd(*fwd_args)
+    torch.cuda.synchronize()
+    want_y, want_mean, want_rstd = fn.group_norm_act_fwd_plain(*fwd_args)
+    if y.dtype != torch.bfloat16 or y.shape != x.shape:
+        raise AssertionError(f"forward kernel returned {y.dtype} "
+                             f"{list(y.shape)}")
+    shape = f"[{b}, {hw}, {c}] bf16 slope {slope}"
+    err = {"fwd": _assert_within(
+        f"y {shape}", y, want_y, 2 ** -7 * want_y.float().abs()
+        + 1e-5 * float(want_y.float().abs().max()))}
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    bwd_args = (x, scale, bias, mean, rstd, dy, 32, slope)
+    dx, dscale, dbias = fn._launch_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    want_dx, want_dscale, want_dbias = fn.group_norm_act_bwd_plain(
+        *bwd_args)
+    err["bwd"] = _assert_within(
+        f"dx {shape}", dx, want_dx, 2 ** -7 * want_dx.float().abs()
+        + 1e-5 * float(want_dx.float().abs().max()))
+    for name, got, want in (("dscale", dscale, want_dscale),
+                            ("dbias", dbias, want_dbias)):
+        _assert_within(f"{name} {shape}", got, want,
+                       1e-4 * float(want.abs().max()))
+    del y, want_y, dx, want_dx
+    pairs = {"fwd": (lambda: fn.group_norm_act_fwd_plain(*fwd_args),
+                     lambda: fn._launch_fwd(*fwd_args)),
+             "bwd": (lambda: fn.group_norm_act_bwd_plain(*bwd_args),
+                     lambda: fn._launch_bwd(*bwd_args))}
+    # Least bytes: x (and dy) read once, y (dx) written once, the float32
+    # per-channel and per-group vectors; operations about 8 (forward) and
+    # 15 (backward) per element.
+    vectors = 4 * (2 * c + 2 * b * 32)
+    xb = x.numel() * x.element_size()
+    out = {"err": err, "ms": {},
+           "bound": {"fwd": least_ms(2 * xb + vectors, 8 * x.numel()),
+                     "bwd": least_ms(3 * xb + vectors + 8 * c,
+                                     15 * x.numel())}}
+    for (kind, (plain, kernel)), launches in zip(pairs.items(), per_step):
+        t_kernel, t_plain = paired_ms(plain, kernel, 10, queued=queued)
+        host = ""
+        if queued:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIMED_CALLS):
+                kernel()
+            host_us = 1e6 * (time.perf_counter() - t0) / TIMED_CALLS
+            host = f", host {host_us:.1f} µs a call"
+            torch.cuda.synchronize()
+        tiling = fn.norm_tiling(b, hw, c, x.dtype, kind)
+        # The bytes the launch moved: one pass, plus any streamed rows read
+        # again.
+        moved = fn.norm_traffic_bytes(b, hw, c, x.dtype, kind, tiling)
+        log(f"kernel group_norm_act {kind} {shape}: max|err| "
+            f"{err[kind]:g}, kernel {t_kernel:.4f} ms "
+            f"({moved / t_kernel / 1e6:.1f} GB/s of {moved / xb:g} units "
+            f"moved{', queued' if queued else ''}{host}), plain "
+            f"{t_plain:.4f} ms, bound "
+            f"{out['bound'][kind][0]:.4f} ms; tiling cluster "
+            f"{tiling.cluster}, {tiling.rows_per_block} rows a block, "
+            f"{tiling.resident_rows} resident, {tiling.smem_bytes} B shared "
+            f"memory, max active clusters "
+            f"{fn.max_active_clusters(x.dtype, kind, tiling)}; {launches} "
+            f"launches a step")
+        out["ms"][kind] = (t_kernel, t_plain)
+    if library:
+        out["library"] = library_norm_ms(x, scale, bias, dy)
+    del x, dy, fwd_args, bwd_args, pairs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _weighted_norm_step(dev, gen, shapes, what, worst, queued=False):
+    """Check and time every shape of ``shapes`` (``NORM_SHAPES``' form)
+    and return {kind: {"ms", "bound_ms"}}, each shape's kernel time and
+    bound weighted by its launches a step; ``worst`` (by kind) takes the
+    largest error. The first shape's full results come back too."""
+    step = {kind: {"ms": 0.0, "bound_ms": 0.0} for kind in ("fwd", "bwd")}
+    first = None
+    for b, hw, c, slope, *per_step in shapes:
+        got = _check_norm_shape(dev, gen, b, hw, c, slope, per_step,
+                                library=first is None, queued=queued)
+        first = first or got
+        for kind, launches in zip(("fwd", "bwd"), per_step):
+            worst[kind] = max(worst[kind], got["err"][kind])
+            step[kind]["ms"] += launches * got["ms"][kind][0]
+            step[kind]["bound_ms"] += launches * got["bound"][kind][0]
+    for kind, t in step.items():
+        count = sum(shape[4 + (kind == "bwd")] for shape in shapes)
+        log(f"kernel group_norm_act {kind}, {what}'s {count} launches: "
+            f"{t['ms']:.4f} ms a step, bound {t['bound_ms']:.4f} ms, "
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
+    return step, first
+
+
 def check_norm_kernels(dev):
     """Phase 2, fused norm: the forward and backward kernels against their
-    plain versions at every norm shape of the flagship step, bfloat16.
-    Returns the two kernel table entries (launches filled in by the
-    training phase); their ``ms`` are at the first, largest shape, and
-    ``step_ms`` / ``step_bound_ms`` are the launch-weighted sums over the
-    step's shapes (``NORM_SHAPES``) of the kernel's time and of its bound.
+    plain versions at every norm shape of the flagship step
+    (``NORM_SHAPES``) and of the age SR-GAN step (``AGE_NORM_SHAPES``),
+    bfloat16. Returns the two kernel table entries (launches filled in by
+    the training phase); their ``ms`` are at the flagship's first, largest
+    shape; ``step_ms`` / ``step_bound_ms`` and ``age_step_ms`` /
+    ``age_step_bound_ms`` are the launch-weighted sums over each step's
+    shapes of the kernel's time and of its bound. The age shapes are
+    timed queued (``cuda_ms``): their calls are shorter on the card than
+    on the host.
 
     Tolerances. The kernel and the plain version compute the same float32
     formulas but sum in different orders, so:
@@ -455,105 +644,33 @@ def check_norm_kernels(dev):
     The backward is held to the plain backward on the kernel's own mean
     and rstd, so that each check sees one kernel.
     """
-    from srgan_tpu_torch.ops import fused_norm as fn
     gen = torch.Generator(device=dev).manual_seed(1)
     worst = {"fwd": 0.0, "bwd": 0.0}
-    times = {}
-    step = {kind: {"ms": 0.0, "bound_ms": 0.0} for kind in ("fwd", "bwd")}
-    for b, hw, c, slope, *per_step in NORM_SHAPES:
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-        x = (randn(b, hw, c) + 0.5).to(torch.bfloat16)
-        dy = randn(b, hw, c).to(torch.bfloat16)
-        scale = 1.0 + 0.1 * randn(c)
-        bias = 0.1 * randn(c)
-        fwd_args = (x, scale, bias, 32, slope, 1e-6)
-        y, mean, rstd = fn._launch_fwd(*fwd_args)
-        torch.cuda.synchronize()
-        want_y, want_mean, want_rstd = fn.group_norm_act_fwd_plain(*fwd_args)
-        if y.dtype != torch.bfloat16 or y.shape != x.shape:
-            raise AssertionError(f"forward kernel returned {y.dtype} "
-                                 f"{list(y.shape)}")
-        err_y = _assert_within(
-            "y", y, want_y, 2 ** -7 * want_y.float().abs()
-            + 1e-5 * float(want_y.float().abs().max()))
-        torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=0)
-        torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
-        bwd_args = (x, scale, bias, mean, rstd, dy, 32, slope)
-        dx, dscale, dbias = fn._launch_bwd(*bwd_args)
-        torch.cuda.synchronize()
-        want_dx, want_dscale, want_dbias = fn.group_norm_act_bwd_plain(
-            *bwd_args)
-        err_dx = _assert_within(
-            "dx", dx, want_dx, 2 ** -7 * want_dx.float().abs()
-            + 1e-5 * float(want_dx.float().abs().max()))
-        for name, got, want in (("dscale", dscale, want_dscale),
-                                ("dbias", dbias, want_dbias)):
-            _assert_within(name, got, want,
-                           1e-4 * float(want.abs().max()))
-        worst["fwd"] = max(worst["fwd"], err_y)
-        worst["bwd"] = max(worst["bwd"], err_dx)
-        del y, want_y, dx, want_dx
-        pairs = {"fwd": (lambda: fn.group_norm_act_fwd_plain(*fwd_args),
-                         lambda: fn._launch_fwd(*fwd_args)),
-                 "bwd": (lambda: fn.group_norm_act_bwd_plain(*bwd_args),
-                         lambda: fn._launch_bwd(*bwd_args))}
-        shape = f"[{b}, {hw}, {c}] bf16 slope {slope}"
-        # Least bytes: x (and dy) read once, y (dx) written once, the
-        # float32 per-channel and per-group vectors; operations about 8
-        # (forward) and 15 (backward) per element.
-        vectors = 4 * (2 * c + 2 * b * 32)
-        xb = x.numel() * x.element_size()
-        bound = {"fwd": least_ms(2 * xb + vectors, 8 * x.numel()),
-                 "bwd": least_ms(3 * xb + vectors + 8 * c, 15 * x.numel())}
-        for (kind, (plain, kernel)), launches in zip(pairs.items(),
-                                                     per_step):
-            t_kernel, t_plain = paired_ms(plain, kernel, 10)
-            tiling = fn.norm_tiling(b, hw, c, x.dtype, kind)
-            # The bytes the launch moved: one pass, plus any streamed rows
-            # read again.
-            moved = fn.norm_traffic_bytes(b, hw, c, x.dtype, kind, tiling)
-            log(f"kernel group_norm_act {kind} {shape}: max|err| "
-                f"{err_y if kind == 'fwd' else err_dx:g}, kernel "
-                f"{t_kernel:.4f} ms ({moved / t_kernel / 1e6:.1f} GB/s of "
-                f"{moved / xb:g} units moved), plain {t_plain:.4f} ms, "
-                f"bound {bound[kind][0]:.4f} ms; tiling cluster "
-                f"{tiling.cluster}, {tiling.rows_per_block} rows a block, "
-                f"{tiling.resident_rows} resident, {tiling.smem_bytes} B "
-                f"shared memory, max active clusters "
-                f"{fn.max_active_clusters(x.dtype, kind, tiling)}; "
-                f"{launches} launches a step")
-            times.setdefault(kind, (t_kernel, t_plain))
-            step[kind]["ms"] += launches * t_kernel
-            step[kind]["bound_ms"] += launches * bound[kind][0]
-        if "library" not in times:  # the first, largest shape
-            times["library"] = library_norm_ms(x, scale, bias, dy)
-            times["bound"] = bound
-            log(f"library [{b}, {hw}, {c}] bf16, F.group_norm (no "
-                f"activation) on an NCHW copy: forward "
-                f"{times['library']['fwd']:.4f} ms, autograd backward "
-                f"{times['library']['bwd']:.4f} ms; bounds "
-                + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
-                            for k, v in times["bound"].items()))
-        del x, dy, fwd_args, bwd_args, pairs
-        torch.cuda.empty_cache()
+    step, first = _weighted_norm_step(dev, gen, NORM_SHAPES,
+                                      "the flagship step", worst)
+    b, hw, c = NORM_SHAPES[0][:3]
+    log(f"library [{b}, {hw}, {c}] bf16, F.group_norm (no activation) on "
+        f"an NCHW copy: forward {first['library']['fwd']:.4f} ms, autograd "
+        f"backward {first['library']['bwd']:.4f} ms; bounds "
+        + ", ".join(f"{k} {v[0]:.4f} ms ({v[1]})"
+                    for k, v in first["bound"].items()))
+    # The age shapes' calls take the host longer than the card: queued.
+    age, _ = _weighted_norm_step(dev, gen, AGE_NORM_SHAPES,
+                                 "the age SR-GAN step", worst, queued=True)
     log("kernel group_norm_act: mean/rstd within rtol 1e-5, dscale/dbias "
         "within 1e-4 of their largest, at every shape")
-    for kind, t in step.items():
-        log(f"kernel group_norm_act {kind}, the flagship step's "
-            f"{NORM_LAUNCHES_PER_STEP[kind]} launches: {t['ms']:.4f} ms a "
-            f"step, bound {t['bound_ms']:.4f} ms, "
-            f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
     return [{"name": f"group_norm_act_{kind}", "route": "cuda",
              "source": "srgan_tpu_torch/csrc/fused_norm.cu",
              "replaces": f"srgan_tpu/ops/fused_norm.py:{line}",
              "launches": None, "max_abs_err": worst[kind],
-             "ms": times[kind][0], "plain_ms": times[kind][1],
-             "bound_ms": times["bound"][kind][0],
-             "bound_by": times["bound"][kind][1],
-             "library_ms": times["library"][kind],
+             "ms": first["ms"][kind][0], "plain_ms": first["ms"][kind][1],
+             "bound_ms": first["bound"][kind][0],
+             "bound_by": first["bound"][kind][1],
+             "library_ms": first["library"][kind],
              "step_ms": step[kind]["ms"],
-             "step_bound_ms": step[kind]["bound_ms"]}
+             "step_bound_ms": step[kind]["bound_ms"],
+             "age_step_ms": age[kind]["ms"],
+             "age_step_bound_ms": age[kind]["bound_ms"]}
             for kind, line in (("fwd", 178), ("bwd", 226))]
 
 
@@ -870,6 +987,84 @@ def check_small_step(dev, norm_impl, factors=()):
                     for k, v in sorted(cpu_metrics.items())))
 
 
+def _app_class(app: str):
+    from srgan_tpu_torch import (AgeExperiment, CoefficientExperiment,
+                                 DrivingExperiment)
+    return {"coefficient": CoefficientExperiment, "age": AgeExperiment,
+            "driving": DrivingExperiment}[app]
+
+
+def check_small_app_step(dev, app, norm_impl="xla", dnn_only=False):
+    """Phase 4, the other apps: at a tiny size (``APP_TINY``: 32-px
+    images, base width 8, hidden 8, batch 4), float32, on the card
+    against the CPU on the same weights (drawn on the host), the same
+    first batch of the base input pipeline and the same draws: one step
+    (the SR-GAN step, or with ``dnn_only`` the DNN-only one), then
+    ``predict`` of the validation split by the trained model.
+
+    Tolerances: step metrics rtol 1e-3 (as the crowd's small step);
+    predictions rtol 1e-4 plus 1e-3 of the largest, the crowd grid
+    evaluation's bound (the tiny one-channel GroupNorms amplify the two
+    devices' sum orders). Under "pallas" the card's norm launches are
+    counted: 3 norms a model at 32 px (``norm_launches_per_step``), and
+    3 forwards for each of the 2 prediction chunks."""
+    from srgan_tpu_torch import Settings
+    from srgan_tpu_torch.ops import fused_norm as fn
+    from srgan_tpu_torch.train import init_train_state, set_float32_precision
+    set_float32_precision()
+    settings = Settings(norm_impl=norm_impl, dnn_only=dnn_only, **APP_TINY)
+    rng = np.random.default_rng(6)
+    b, z = settings.batch_size, settings.latent_dimension
+    draws = dict(z_d=rng.normal(0, 1, (b, z)), z_g=rng.normal(0, 1, (b, z)),
+                 alpha=rng.uniform(0, 1, b))
+    results = []
+    for device in ("cpu", dev):
+        before = (fn._launch_fwd.launches, fn._launch_bwd.launches)
+        exp = _app_class(app)(settings, device=device)
+        exp.dataset_setup()
+        exp.models = exp.model_setup()
+        exp.state = init_train_state(settings, exp.models)
+        exp.prepare_train_step()
+        batch = next(next(exp.epoch_batch_iterators()))
+        if dnn_only:
+            _, metrics = exp._train_step(exp.state, *batch[:2])
+        else:
+            fed = {k: torch.tensor(v, dtype=torch.float32, device=device)
+                   for k, v in draws.items()}
+            _, metrics = exp._train_step(exp.state, *batch, None, **fed)
+        preds = exp.predict(exp.validation_dataset)
+        launches = (fn._launch_fwd.launches - before[0],
+                    fn._launch_bwd.launches - before[1])
+        results.append(({k: float(v) for k, v in metrics.items()}, preds,
+                         launches))
+    (cpu_metrics, cpu_preds, _), (gpu_metrics, gpu_preds, launches) = results
+    what = f"small {app} ({norm_impl}{', dnn_only' if dnn_only else ''})"
+    if set(gpu_metrics) != set(cpu_metrics):
+        raise AssertionError(f"{what}: metrics {sorted(gpu_metrics)}")
+    for k, v in cpu_metrics.items():
+        if not math.isclose(gpu_metrics[k], v, rel_tol=1e-3, abs_tol=1e-5):
+            raise AssertionError(f"{what}: {k} is {gpu_metrics[k]} on the "
+                                 f"card, {v} on the CPU")
+    np.testing.assert_allclose(
+        gpu_preds, cpu_preds, rtol=1e-4,
+        atol=1e-3 * float(np.abs(cpu_preds).max()),
+        err_msg=f"{what}: validation predictions")
+    want = (0, 0)
+    if norm_impl == "pallas" and app != "coefficient":
+        step = norm_launches_per_step(3, dnn_only)
+        chunks = -(-settings.validation_dataset_size // b)
+        want = (step[0] + 3 * chunks, step[1])
+    if launches != want:
+        raise AssertionError(f"{what}: (norm forward, backward) kernels "
+                             f"launched {launches} times, not {want}")
+    log(f"{what}, fp32, card vs CPU (norm launches on the card {launches}): "
+        f"validation predictions max|err| "
+        f"{float(np.abs(gpu_preds - cpu_preds).max()):g} of "
+        f"{float(np.abs(cpu_preds).max()):g}; step "
+        + ", ".join(f"{k} {gpu_metrics[k]:.6g}/{v:.6g}"
+                    for k, v in sorted(cpu_metrics.items())))
+
+
 def read_scalars(trial_directory: str):
     """{writer: {step: {tag: value}}} of the trial's scalars.jsonl files,
     throughput left out."""
@@ -1009,6 +1204,146 @@ def train_main_path(settings, dev, card: str) -> dict:
     return launches
 
 
+def app_train_main_path(app, settings, dev, card: str) -> dict:
+    """Phase 10: ``<App>Experiment(settings, device="cuda").train()``:
+    every step's losses finite, every validation scalar finite for D
+    (unless ``dnn_only``) and the DNN, the G sample PNGs written (image
+    apps, unless ``dnn_only``), and under "pallas" the fused norm
+    launched ``norm_launches_per_step(4)`` times a step (4 norms in each
+    of D, G and the DNN at 64 px) and 4 forwards per model and
+    ``batch_size`` chunk of each validation pass, plus G's 4 for the
+    samples. Then ``TIMED_STEPS`` more steps of the same experiment
+    between synchronizations: ms/step, examples/s and the peak of
+    allocated memory; and ``PROFILED_STEPS`` under ``torch.profiler``:
+    the card's busy ms a step. Returns the timing line's numbers."""
+    from srgan_tpu_torch.ops import fused_norm as fn
+    exp = _app_class(app)(settings, device=dev)
+    steps = settings.steps_to_run
+    period = settings.validation_step_period
+    pallas = settings.norm_impl == "pallas" and app != "coefficient"
+    what = (f"{app} ({settings.norm_impl}, {settings.compute_dtype}"
+            f"{', dnn_only' if settings.dnn_only else ''})")
+    # An earlier run's experiment, held by reference cycles, must not
+    # count in this one's peak.
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"group_norm_act_fwd": fn._launch_fwd,
+                "group_norm_act_bwd": fn._launch_bwd}
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    state = exp.train()
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    validations = steps // period
+    log(f"train {what}: {steps} steps and {validations} validation passes "
+        f"through train() in {time.perf_counter() - t0:.1f} s (data set-up "
+        f"and warm-up included); kernel launches {json.dumps(launches)}")
+    if state.step != steps:
+        raise AssertionError(f"{what}: trained {state.step} steps")
+    if pallas:
+        chunks = -(-settings.validation_dataset_size // settings.batch_size)
+        models = 1 if settings.dnn_only else 2
+        per_validation = 4 * models * chunks + (0 if settings.dnn_only
+                                                else 4)
+        per_step = norm_launches_per_step(4, settings.dnn_only)
+        want = {"group_norm_act_fwd": per_step[0] * steps
+                + per_validation * validations,
+                "group_norm_act_bwd": per_step[1] * steps}
+    else:
+        want = {name: 0 for name in counters}
+    if launches != want:
+        raise AssertionError(f"{what}: norm kernels launched {launches}, "
+                             f"not {want}")
+    scalars = read_scalars(exp.trial_directory)
+    losses = 1 if settings.dnn_only else 7
+    for step in range(steps):
+        values = {k: v for sub in ("GAN", "DNN")
+                  for k, v in scalars[sub].get(step, {}).items()
+                  if not k.startswith("validation/")}
+        if len(values) != losses or not all(map(math.isfinite,
+                                                values.values())):
+            raise AssertionError(f"{what}: step {step} losses {values}")
+    tags = {f"validation/{k}" for k in REGRESSION_METRICS}
+    writers = ("DNN",) if settings.dnn_only else ("GAN", "DNN")
+    for step in range(period, steps + 1, period):
+        for sub in writers:
+            got = {k: v for k, v in scalars[sub].get(step, {}).items()
+                   if k.startswith("validation/")}
+            if set(got) != tags or not all(map(math.isfinite,
+                                               got.values())):
+                raise AssertionError(f"{what}: {sub} validation at step "
+                                     f"{step}: {got}")
+        if "GAN" not in writers:
+            gan = scalars["GAN"].get(step, {})
+            if any(k.startswith("validation/") for k in gan):
+                raise AssertionError(f"{what}: D validated: {gan}")
+        pngs = [os.path.join(exp.trial_directory, "GAN", "images",
+                             f"generated_sample_{i}_{step}.png")
+                for i in range(4)]
+        written = [os.path.exists(p) for p in pngs]
+        expect = app != "coefficient" and not settings.dnn_only
+        if written != [expect] * 4:
+            raise AssertionError(f"{what}: sample PNGs at step {step}: "
+                                 f"{written}")
+    log(f"train {what}: last step's losses " + json.dumps(
+        {k: v for sub in ("GAN", "DNN")
+         for k, v in scalars[sub].get(steps - 1, {}).items()}) +
+        "; validation, last: "
+        + json.dumps({sub: {k: v for k, v in scalars[sub][steps].items()
+                            if k.startswith("validation/")}
+                      for sub in writers}))
+
+    epochs = exp.epoch_batch_iterators()
+
+    def batches():
+        while True:
+            yield from next(epochs)
+
+    stream = batches()
+    for _ in range(2):
+        exp._step(*next(stream))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        _, metrics = exp._step(*next(stream))
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"{what}: timed steps' losses {metrics}")
+    out = {"ms_per_step": 1e3 * elapsed / TIMED_STEPS,
+           "examples_per_s": settings.batch_size * TIMED_STEPS / elapsed,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # The card's busy time a step: its kernels' and copies' device time
+    # over PROFILED_STEPS steps under torch.profiler, beside the
+    # unprofiled ms/step.
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(PROFILED_STEPS):
+            exp._step(*next(stream))
+        torch.cuda.synchronize()
+    # The rows of the card's own events (kernels, copies, sets); a host
+    # op's row repeats the time of the kernels it launched.
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["device_ms_per_step"] = sum(
+        e.self_device_time_total for e in events) / 1e3 / PROFILED_STEPS
+    out["kernels_per_step"] = sum(e.count for e in events) / PROFILED_STEPS
+    log(f"time {what}: {out['ms_per_step']:.3f} ms/step, "
+        f"{out['examples_per_s']:.1f} examples/s (batch "
+        f"{settings.batch_size}, {TIMED_STEPS} steps, {dev}: {card}), peak "
+        f"allocated {out['peak_gib']:.3f} GiB; under torch.profiler "
+        f"({PROFILED_STEPS} steps) the card is busy "
+        f"{out['device_ms_per_step']:.3f} ms a step "
+        f"({100 * out['device_ms_per_step'] / out['ms_per_step']:.1f}% of "
+        f"the unprofiled step), {out['kernels_per_step']:.0f} device "
+        f"operations a step")
+    exp.close()
+    return out
+
+
 def raw_draws():
     """The raw database's draws from seed 0, in order: (split, i, the
     image's 24×32 noise, its heads (x, y) float64) per image, up to 2000
@@ -1127,12 +1462,45 @@ def _cli(argv) -> dict:
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
-def _finite_metrics(what, result, splits=("validation", "test")):
-    for split in splits:
+COUNT_METRICS = {"MAE", "RMSE", "NVE", "NAE"}  # crowd's
+REGRESSION_METRICS = {"MAE", "RMSE", "NVE"}     # the other apps'
+
+
+def _finite_metrics(what, result, keys=COUNT_METRICS):
+    for split in ("validation", "test"):
         values = result.get(split) or {}
-        if set(values) != {"MAE", "RMSE", "NVE", "NAE"} or not all(
+        if set(values) != keys or not all(
                 map(math.isfinite, values.values())):
             raise AssertionError(f"{what}: {split} metrics {values}")
+
+
+def _assert_restored(fresh, step_dir: str) -> int:
+    """Every tensor of ``fresh``'s restored state (models and Adam
+    moments) bit-equal to the checkpoint file in ``step_dir``; returns
+    how many were compared."""
+    from srgan_tpu_torch import checkpoint
+    saved = torch.load(os.path.join(step_dir, checkpoint.STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    compared = 0
+    for name in ("d", "g", "dnn"):
+        module = getattr(fresh.state, name)
+        adam = getattr(fresh.state, f"{name}_opt").adam.state_dict()["state"]
+        pairs = [(f"{name}.{k}", v, saved[name][k])
+                 for k, v in module.state_dict().items()]
+        pairs += [(f"{name}_opt.{i}.{s}", v, saved[f"{name}_opt"][i][s])
+                  for i, slots in adam.items() for s, v in slots.items()]
+        if len(pairs) != len(saved[name]) + sum(
+                map(len, saved[f"{name}_opt"].values())):
+            raise AssertionError(f"restore: {name} has {len(pairs)} tensors")
+        for key, got, want in pairs:
+            if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
+                raise AssertionError(f"restore: {key} differs from the "
+                                     f"checkpoint")
+        compared += len(pairs)
+    if fresh.state.step != saved["step"]:
+        raise AssertionError(f"restored step {fresh.state.step}, saved "
+                             f"{saved['step']}")
+    return compared
 
 
 def cli_main_path(dev, db_dir: str, logs: str) -> dict:
@@ -1182,24 +1550,7 @@ def cli_main_path(dev, db_dir: str, logs: str) -> dict:
     settings = Settings(**apply_preset("crowd_flagship", flags))
     fresh = CrowdExperiment(settings, device=dev)
     fresh.prepare_for_evaluation(os.path.join(root, "step_4"))
-    saved = torch.load(os.path.join(root, "step_4", checkpoint.STATE_FILE),
-                       map_location="cpu", weights_only=True)
-    compared = 0
-    for name in ("d", "g", "dnn"):
-        module = getattr(fresh.state, name)
-        adam = getattr(fresh.state, f"{name}_opt").adam.state_dict()["state"]
-        pairs = [(f"{name}.{k}", v, saved[name][k])
-                 for k, v in module.state_dict().items()]
-        pairs += [(f"{name}_opt.{i}.{s}", v, saved[f"{name}_opt"][i][s])
-                  for i, slots in adam.items() for s, v in slots.items()]
-        if len(pairs) != len(saved[name]) + sum(
-                map(len, saved[f"{name}_opt"].values())):
-            raise AssertionError(f"restore: {name} has {len(pairs)} tensors")
-        for key, got, want in pairs:
-            if got.dtype != want.dtype or not torch.equal(got.cpu(), want):
-                raise AssertionError(f"restore: {key} differs from the "
-                                     f"checkpoint")
-        compared += len(pairs)
+    compared = _assert_restored(fresh, os.path.join(root, "step_4"))
     if fresh.state.step != 4:
         raise AssertionError(f"restored step {fresh.state.step}")
     mae = fresh.evaluate()["MAE"]
@@ -1207,7 +1558,7 @@ def cli_main_path(dev, db_dir: str, logs: str) -> dict:
         raise AssertionError(f"restored validation MAE {mae}, trained "
                              f"{first['validation']['MAE']}")
     fresh.close()
-    del fresh, saved
+    del fresh
     log(f"cli restore: step 4, {compared} tensors bit-equal to the "
         f"checkpoint; validation MAE {mae:.6g} (trained {first['validation']['MAE']:.6g})")
 
@@ -1238,6 +1589,106 @@ def cli_main_path(dev, db_dir: str, logs: str) -> dict:
         raise AssertionError(f"exported maps {shapes} (finite: {finite})")
     log(f"cli evaluate: {json.dumps(evaluated)}; exported {shapes}")
     return launches
+
+
+def synthesize_imdb_wiki(root: str, n: int = 90) -> str:
+    """An IMDB-WIKI layout from seed 0: ``wiki.mat`` (scipy) and ``n``
+    JPEGs of 80–160 px (PIL) under ``00/``; every tenth record has a
+    second face and is filtered out. Returns the .mat's path."""
+    from PIL import Image
+    from scipy.io import savemat
+    rng = np.random.default_rng(0)
+    os.makedirs(os.path.join(root, "00"), exist_ok=True)
+    full_path = np.empty((1, n), object)
+    for i in range(n):
+        rel = f"00/img_{i}.jpg"
+        h, w = rng.integers(80, 161, 2)
+        Image.fromarray(rng.integers(0, 256, (h, w, 3)).astype(
+            np.uint8)).save(os.path.join(root, rel))
+        full_path[0, i] = np.array([rel])
+    second = np.full((1, n), np.nan)
+    second[0, ::10] = 3.0
+    wiki = np.zeros((1, 1), dtype=[
+        ("dob", object), ("photo_taken", object), ("full_path", object),
+        ("face_score", object), ("second_face_score", object)])
+    wiki[0, 0] = (rng.uniform(701000.0, 725000.0, (1, n)),  # 1919–1985
+                  np.full((1, n), 2010.0), full_path,
+                  rng.uniform(1.5, 5.0, (1, n)), second)
+    path = os.path.join(root, "wiki.mat")
+    savemat(path, {"wiki": wiki})
+    return path
+
+
+def age_cli_main_path(dev, logs: str) -> None:
+    """Phase 11: the other apps' command lines. A synthesized IMDB-WIKI
+    layout through ``python -m srgan_tpu_torch.data.age``'s ``main`` (64
+    px); ``python -m srgan_tpu_torch age`` on its npz at full width under
+    "pallas" (bfloat16, batch 32): 4 steps with checkpoints every 2,
+    step 4 restored into a fresh experiment bit for bit, evaluate-only;
+    then ``coefficient`` and ``driving`` (frame stack 3) for a few steps.
+    Each prints one JSON line of finite validation and test metrics."""
+    from srgan_tpu_torch import AgeExperiment, Settings
+    from srgan_tpu_torch.data.age import main as age_main
+    from srgan_tpu_torch.ops import fused_norm as fn
+    raw = os.path.join(logs, "imdb_wiki")
+    mat = synthesize_imdb_wiki(raw)
+    npz = os.path.join(logs, "age.npz")
+    t0 = time.perf_counter()
+    rc = age_main([raw, mat, npz])
+    if rc != 0:
+        raise AssertionError(f"the age preprocessor returned {rc}")
+    with np.load(npz) as z:
+        images, ages = z["images"], z["ages"]
+    if (images.shape != (81, 64, 64, 3) or images.dtype != np.uint8
+            or not np.all((ages >= 0) & (ages <= 100))):
+        raise AssertionError(f"age npz: images {images.dtype} "
+                             f"{images.shape}, ages {ages.min()}–"
+                             f"{ages.max()}")
+    log(f"age preprocess: 90 records, 81 kept, {images.shape} uint8 in "
+        f"{time.perf_counter() - t0:.2f} s; ages {ages.min():.1f}–"
+        f"{ages.max():.1f}")
+    flags = dict(age_database_path=npz, labeled_dataset_size=32,
+                 unlabeled_dataset_size=32, validation_dataset_size=9,
+                 test_dataset_size=8, logs_directory=logs,
+                 trial_name="chip_smoke_age_cli", summary_step_period=1,
+                 seed=0, **APP_CLI_MODEL)
+    base = ["age"] + [f"--{k}={v}" for k, v in flags.items()]
+    fn._launch_fwd.launches = fn._launch_bwd.launches = 0
+    first = _cli(base + ["--steps_to_run", "4", "--save_step_period", "2",
+                         "--validation_step_period", "4"])
+    launches = (fn._launch_fwd.launches, fn._launch_bwd.launches)
+    _finite_metrics("age train", first, REGRESSION_METRICS)
+    trial = first["trial_directory"]
+    root = os.path.join(trial, "checkpoints")
+    if sorted(os.listdir(root)) != ["step_2", "step_4"]:
+        raise AssertionError(f"age checkpoints {sorted(os.listdir(root))}")
+    if min(launches) < 1:
+        raise AssertionError(f"age cli: norm launches {launches}")
+    log(f"age cli train: 4 steps, checkpoints step_2 and step_4, norm "
+        f"launches (forward, backward) {launches}; {json.dumps(first)}")
+    fresh = AgeExperiment(Settings(**flags), device=dev)
+    fresh.prepare_for_evaluation(os.path.join(root, "step_4"))
+    compared = _assert_restored(fresh, os.path.join(root, "step_4"))
+    mae = fresh.evaluate()["MAE"]
+    if not math.isclose(mae, first["validation"]["MAE"], rel_tol=1e-3):
+        raise AssertionError(f"age restored validation MAE {mae}, trained "
+                             f"{first['validation']['MAE']}")
+    fresh.close()
+    evaluated = _cli(base + ["--evaluate_only", "--load_model_path", trial])
+    _finite_metrics("age evaluate", evaluated, REGRESSION_METRICS)
+    log(f"age cli restore: step 4, {compared} tensors bit-equal, validation "
+        f"MAE {mae:.6g} (trained {first['validation']['MAE']:.6g}); "
+        f"evaluate-only {json.dumps(evaluated)}")
+    small = dict(logs_directory=logs, summary_step_period=1, seed=0,
+                 labeled_dataset_size=64, unlabeled_dataset_size=256,
+                 validation_dataset_size=64, test_dataset_size=64)
+    for app, extra in (("coefficient", dict(steps_to_run=50)),
+                       ("driving", dict(steps_to_run=4, driving_frame_stack=3,
+                                        **APP_CLI_MODEL))):
+        result = _cli([app] + [f"--{k}={v}" for k, v in
+                               dict(small, **extra).items()])
+        _finite_metrics(app, result, REGRESSION_METRICS)
+        log(f"{app} cli: {json.dumps(result)}")
 
 
 def bandwidth_main_path(entry: dict) -> None:
@@ -1315,6 +1766,10 @@ def main() -> int:
     for factors in ((), RESCALE):
         for impl in ("xla", "pallas"):
             check_small_step(dev, impl, factors)
+    check_small_app_step(dev, "coefficient")
+    for impl in ("xla", "pallas"):
+        check_small_app_step(dev, "age", impl)
+    check_small_app_step(dev, "age", "pallas", dnn_only=True)
 
     # 5. the training paths through their entry point; 6. timed steps
     logs = os.path.join(REPO, "logs", "chip_smoke")
@@ -1334,6 +1789,23 @@ def main() -> int:
 
     # 9. the bandwidth tool, the copy probe's path
     bandwidth_main_path(entries[-1])
+
+    # 10. the other apps through their entry points; 11. their command lines
+    from srgan_tpu_torch.presets import apply_preset
+    app_logs = os.path.join(logs, "apps")
+    runs = [("age", dict(norm_impl="xla")), ("age", dict(norm_impl="pallas")),
+            ("age", apply_preset("age_dnn", dict(norm_impl="pallas"))),
+            ("driving", dict(norm_impl="pallas", driving_frame_stack=3)),
+            ("coefficient", apply_preset("coefficient_win", dict(
+                steps_to_run=200, validation_step_period=100, seed=0,
+                summary_step_period=1)))]
+    for app, over in runs:
+        kw = dict(APP_FULL, logs_directory=app_logs)
+        if app == "coefficient":
+            kw = dict(trial_name="chip_smoke_app", test_dataset_size=100,
+                      logs_directory=app_logs)
+        app_train_main_path(app, Settings(**dict(kw, **over)), dev, smi)
+    age_cli_main_path(dev, os.path.join(app_logs, "cli"))
 
     for entry in entries[:-1]:
         entry["launches"] = launches[entry["name"]]

@@ -10,6 +10,10 @@ validation (and test) metrics. It runs on the CUDA card unless given
 ``--device cpu``.
 
 Examples:
+  python -m srgan_tpu_torch coefficient --preset coefficient_win
+  python -m srgan_tpu_torch age --age_database_path age.npz
+  python -m srgan_tpu_torch age --preset age_dnn --steps_to_run 2000
+  python -m srgan_tpu_torch driving --driving_frame_stack 3
   python -m srgan_tpu_torch crowd --crowd_database_path /data/ucf_qnrf_npz
   python -m srgan_tpu_torch crowd --preset crowd_flagship \\
       --crowd_database_path DB --save_step_period 1000
@@ -28,12 +32,11 @@ import typing
 
 from srgan_tpu_torch.settings import Settings
 
-# The JAX package's apps; None marks one not ported yet.
 APPS = {
-    "coefficient": None,
-    "age": None,
+    "coefficient": "srgan_tpu_torch.apps.coefficient:CoefficientExperiment",
+    "age": "srgan_tpu_torch.apps.age:AgeExperiment",
     "crowd": "srgan_tpu_torch.apps.crowd:CrowdExperiment",
-    "driving": None,
+    "driving": "srgan_tpu_torch.apps.driving:DrivingExperiment",
 }
 
 
@@ -116,10 +119,9 @@ def main(argv=None) -> int:
         except ValueError as error:
             raise SystemExit(str(error))
     settings = Settings(**fields)
-    if APPS[args.app] is None:
-        raise SystemExit(f"the {args.app} app is not ported to PyTorch yet "
-                         f"(see ROADMAP.md, section 1, item 12); the port "
-                         f"runs: {', '.join(k for k, v in APPS.items() if v)}")
+    if args.export_density_maps and args.app != "crowd":
+        raise SystemExit("--export_density_maps is crowd-only (density "
+                         "maps are a crowd-counting concept)")
     module_name, class_name = APPS[args.app].split(":")
     experiment_cls = getattr(importlib.import_module(module_name),
                              class_name)
@@ -156,7 +158,7 @@ def _ensure_writable(path: str) -> None:
 def _evaluate_or_null(experiment):
     """Validation metrics, or ``None`` for an empty or absent validation
     split: a finished run always reports its JSON line."""
-    ds = experiment.validation_db
+    ds = experiment.validation_dataset
     if ds is None or len(ds) == 0:
         return None
     return experiment.evaluate()

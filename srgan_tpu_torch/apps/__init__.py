@@ -1,1 +1,1 @@
-"""Applications of the port (crowd counting so far)."""
+"""Applications of the port: coefficient, age, crowd and driving."""

@@ -119,7 +119,9 @@ class CrowdExperiment(Experiment):
          self.test_db) = self._load_databases()
         self.labeled_dataset = self.labeled_db
         self.unlabeled_dataset = self.unlabeled_db
-        # test() dispatches on this; evaluate() takes CrowdDatabases.
+        # test() and the command line dispatch on these; evaluate() takes
+        # CrowdDatabases.
+        self.validation_dataset = self.validation_db
         self.test_dataset = self.test_db
 
     @property

@@ -15,6 +15,9 @@ Layout rules (``srgan_tpu_torch.models.dcgan``):
 * ``GroupNorm_i`` (``norm_impl="xla"``) or ``FusedGroupNormAct_i``
   (``norm_impl="pallas"``) scale / bias → ``norms.i.scale`` /
   ``norms.i.bias``; both norm modules of the port keep these keys.
+
+The port's ``ConvRegressor`` flattens its last map in NHWC order, as the
+flax model does, so its dense kernels convert by the plain transpose.
 """
 
 from __future__ import annotations
@@ -71,6 +74,11 @@ def _norms(tree: Mapping, count: int) -> StateDict:
     return out
 
 
+def _dense(out: StateDict, prefix: str, leaf: Mapping) -> None:
+    out[f"{prefix}.weight"] = dense_weight(leaf["kernel"])
+    out[f"{prefix}.bias"] = _tensor(leaf["bias"])
+
+
 def joint_cnn_state_dict(params: Mapping) -> StateDict:
     """flax ``JointCNN`` → ``srgan_tpu_torch.models.crowd.JointCNN``
     (with or without norms)."""
@@ -92,14 +100,40 @@ def generator_state_dict(params: Mapping) -> StateDict:
     """flax ``DCGANGenerator`` / ``CrowdDCGenerator`` →
     ``srgan_tpu_torch.models.dcgan.DCGANGenerator``."""
     tree = _tree(params)
-    out: StateDict = {
-        "dense.weight": dense_weight(tree["Dense_0"]["kernel"]),
-        "dense.bias": _tensor(tree["Dense_0"]["bias"]),
-    }
+    out: StateDict = {}
+    _dense(out, "dense", tree["Dense_0"])
     num_ups = sum(1 for name in tree if name.startswith("ConvTranspose_"))
     for i in range(num_ups):
         leaf = tree[f"ConvTranspose_{i}"]
         out[f"deconvs.{i}.weight"] = conv_transpose_weight(leaf["kernel"])
         out[f"deconvs.{i}.bias"] = _tensor(leaf["bias"])
     out.update(_norms(tree, num_ups))  # one after Dense, one per inner deconv
+    return out
+
+
+def mlp_state_dict(params: Mapping) -> StateDict:
+    """flax ``CoefficientGenerator`` / ``CoefficientMLP`` →
+    ``srgan_tpu_torch.models.mlp``: ``Dense_i`` → ``layers.i``."""
+    tree = _tree(params)
+    out: StateDict = {}
+    count = sum(1 for name in tree if name.startswith("Dense_"))
+    for i in range(count):
+        _dense(out, f"layers.{i}", tree[f"Dense_{i}"])
+    return out
+
+
+def conv_regressor_state_dict(params: Mapping) -> StateDict:
+    """flax ``ConvRegressor`` → ``srgan_tpu_torch.models.dcgan.
+    ConvRegressor``: ``Conv_i`` → ``convs.i``, the norms → ``norms.i``,
+    ``Dense_0`` (the features) → ``dense``, ``Dense_1`` → ``head``."""
+    tree = _tree(params)
+    out: StateDict = {}
+    count = sum(1 for name in tree if name.startswith("Conv_"))
+    for i in range(count):
+        leaf = tree[f"Conv_{i}"]
+        out[f"convs.{i}.weight"] = conv_weight(leaf["kernel"])
+        out[f"convs.{i}.bias"] = _tensor(leaf["bias"])
+    out.update(_norms(tree, count))
+    _dense(out, "dense", tree["Dense_0"])
+    _dense(out, "head", tree["Dense_1"])
     return out

@@ -1,34 +1,45 @@
 """The Experiment orchestrator: trial directory, summaries, seeding,
-checkpoints and the training loop.
+checkpoints, the training loop, prediction and validation.
 
 The port of ``srgan_tpu.experiment.Experiment`` (``train``,
 ``training_loop``, ``load_models``/``save_models``,
-``prepare_for_evaluation``, ``test``) on one device. The loop enqueues
-steps without waiting for the device and synchronizes only on summary,
-checkpoint and validation steps.
+``prepare_for_evaluation``, ``epoch_batch_iterators``, ``predict``,
+``validation_summaries``, ``evaluate``, ``test``) on one device. The
+loop enqueues steps without waiting for the device and synchronizes only
+on summary, checkpoint and validation steps.
 
 An experiment runs on the CUDA card unless it is given ``device="cpu"``
 (or another device): without a card, :func:`default_device` raises
 rather than train on the CPU unasked.
 
-Not ported yet (``ROADMAP.md``): profiling, the mesh, and the apps other
-than crowd. A setting that asks for one of them raises
-``NotImplementedError`` (:func:`check_supported`).
+``dnn_only`` trains the DNN alone (``make_dnn_train_step``);
+``profile_step_range`` traces steps ``[start, end)`` with
+``torch.profiler`` into ``<trial>/profile/``; ``debug_nans`` turns on
+autograd's anomaly mode for ``train()`` and checks every step's metrics.
+Not ported yet (``ROADMAP.md``): the mesh, and the crowd app's host and
+window tiers, dataset sharding, kNN targets and deeper models. A setting
+that asks for one of them raises ``NotImplementedError``
+(:func:`check_supported`).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from srgan_tpu_torch import checkpoint
+from srgan_tpu_torch import checkpoint, metrics
+from srgan_tpu_torch.data.core import (ArrayDataset, cycling_batches,
+                                       epoch_batches, prefetch_to_device,
+                                       to_device)
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.train import (ModelBundle, SRGANTrainState,
                                    default_labeled_loss_fn, init_train_state,
-                                   make_gan_train_step,
+                                   make_dnn_train_step, make_gan_train_step,
                                    set_float32_precision)
 from srgan_tpu_torch.utils.device import default_device
 from srgan_tpu_torch.utils.seeding import generator_for, seed_all
@@ -37,9 +48,6 @@ from srgan_tpu_torch.utils.summary import SummaryWriter, make_trial_directory
 # Settings of features the port does not run yet, with the value that
 # keeps each one off.
 _UNPORTED = {
-    "dnn_only": False,
-    "profile_step_range": None,
-    "debug_nans": False,
     "steps_per_dispatch": 1,
     "model_parallel_devices": 1,
     "crowd_host_pipeline": False,
@@ -73,8 +81,10 @@ def check_supported(settings: Settings) -> None:
 class Experiment:
     """Orchestrates one SR-GAN trial on one device.
 
-    Subclasses bind an application by implementing :meth:`dataset_setup`,
-    :meth:`model_setup` and :meth:`epoch_batch_iterators`.
+    Subclasses bind an application by implementing :meth:`dataset_setup`
+    and :meth:`model_setup` (and, for an app with its own input pipeline
+    or metrics, :meth:`epoch_batch_iterators`, :meth:`validation_summaries`
+    and :meth:`evaluate`).
     """
 
     def __init__(self, settings: Settings,
@@ -117,8 +127,29 @@ class Experiment:
 
     def epoch_batch_iterators(self):
         """Endless generator of per-epoch iterators of device-ready
-        ``(labeled_x, labels, unlabeled_x)`` triples."""
-        raise NotImplementedError
+        ``(labeled_x, labels, unlabeled_x)`` triples.
+
+        Default: shuffled epochs of the labeled :class:`ArrayDataset`
+        zipped with an endless unlabeled stream, drawn on the host from
+        the JAX package's seed sequences (``[seed, 1, start]`` labeled,
+        ``[seed, 2, start]`` unlabeled, ``start`` the restored step), so
+        that a seed gives both packages the same batches and a resume
+        starts a fresh order; prefetched to the device two batches
+        ahead."""
+        settings = self.settings
+        data_rng = np.random.default_rng([settings.seed, 1,
+                                          self._start_step])
+        unlabeled_rng = np.random.default_rng([settings.seed, 2,
+                                               self._start_step])
+        unlabeled_iter = cycling_batches(self.unlabeled_dataset,
+                                         settings.batch_size, unlabeled_rng)
+        while True:
+            batches = (
+                (lab + (next(unlabeled_iter)[0],))
+                for lab in epoch_batches(self.labeled_dataset,
+                                         settings.batch_size, data_rng))
+            yield (tuple(map(model_layout, batch)) for batch in
+                   prefetch_to_device(batches, self.device))
 
     # ------------------------------------------------------------- plumbing
     def prepare_summary_writers(self) -> None:
@@ -131,9 +162,15 @@ class Experiment:
             os.path.join(self.trial_directory, "GAN"), period)
 
     def prepare_train_step(self) -> None:
-        self._train_step = make_gan_train_step(
-            self.settings, labeled_loss_fn=self.labeled_loss_fn(),
-            latent_shape=self.latent_shape())
+        if self.settings.dnn_only:
+            # The supervised baseline alone: no G/D updates, labeled
+            # batches only (the loop's _step).
+            self._train_step = make_dnn_train_step(
+                self.settings, labeled_loss_fn=self.labeled_loss_fn())
+        else:
+            self._train_step = make_gan_train_step(
+                self.settings, labeled_loss_fn=self.labeled_loss_fn(),
+                latent_shape=self.latent_shape())
         self._rng = generator_for(self.settings.seed, "train", self.device,
                                   start=self._start_step)
 
@@ -198,6 +235,10 @@ class Experiment:
         # A prepare_for_evaluation() before must not leak its skipped
         # training splits into a training run.
         self._evaluation_only = False
+        anomaly = (torch.is_anomaly_enabled(),
+                   torch.is_anomaly_check_nan_enabled())
+        if settings.debug_nans:
+            torch.autograd.set_detect_anomaly(True)
         try:
             self.trial_directory = make_trial_directory(settings)
             self.prepare_summary_writers()
@@ -214,6 +255,7 @@ class Experiment:
             return self.state
         finally:
             self.close()
+            torch.autograd.set_detect_anomaly(*anomaly)
 
     def training_loop(self) -> None:
         """Epochs of labeled batches, each step the fused GAN + DNN
@@ -225,14 +267,25 @@ class Experiment:
             total_steps = settings.epochs_to_run * steps_per_epoch
         else:
             total_steps = settings.steps_to_run
+        profile_range = settings.profile_step_range
+        profiler = None
         last_summary_time = None
         last_summary_step = step
         epoch = step // steps_per_epoch
         epochs = self.epoch_batch_iterators()
         while step < total_steps:
             for labeled_x, labels, unlabeled_x in next(epochs):
-                self.state, step_metrics = self._train_step(
-                    self.state, labeled_x, labels, unlabeled_x, self._rng)
+                if (profile_range and profiler is None
+                        and step == profile_range[0]):
+                    profiler = self._start_profiler()
+                self.state, step_metrics = self._step(labeled_x, labels,
+                                                      unlabeled_x)
+                if settings.debug_nans:
+                    check_finite(step_metrics, step)
+                # [start, end): stop once the step numbered end-1 has run.
+                if profiler is not None and step + 1 >= profile_range[1]:
+                    self._stop_profiler(profiler)
+                    profiler = None
                 self.gan_summary_writer.step = step
                 self.dnn_summary_writer.step = step
                 if self.gan_summary_writer.is_summary_step():
@@ -264,6 +317,32 @@ class Experiment:
             epoch += 1
             if not settings.validation_step_period:
                 self.validation_summaries(epoch=epoch, step=step)
+        if profiler is not None:  # the run ended inside the window
+            self._stop_profiler(profiler)
+
+    def _step(self, labeled_x, labels, unlabeled_x):
+        if self.settings.dnn_only:
+            return self._train_step(self.state, labeled_x, labels)
+        return self._train_step(self.state, labeled_x, labels, unlabeled_x,
+                                self._rng)
+
+    def _start_profiler(self) -> torch.profiler.profile:
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler: torch.profiler.profile) -> None:
+        """Stop ``profiler`` and write its Chrome trace to
+        ``<trial>/profile/steps_<start>_<end>.json``."""
+        profiler.stop()
+        start, end = self.settings.profile_step_range
+        directory = os.path.join(self.trial_directory, "profile")
+        os.makedirs(directory, exist_ok=True)
+        profiler.export_chrome_trace(
+            os.path.join(directory, f"steps_{start}_{end}.json"))
 
     def steps_per_epoch(self) -> int:
         return max(1, len(self.labeled_dataset) // self.settings.batch_size)
@@ -284,14 +363,51 @@ class Experiment:
         trials, else the SR-GAN discriminator."""
         return self.settings.dnn_only if use_dnn is None else use_dnn
 
-    def validation_summaries(self, epoch: int, step: int) -> None:
-        """Per-epoch validation scalars of D and the DNN (the app's)."""
-        raise NotImplementedError
+    def predict(self, dataset: ArrayDataset,
+                use_dnn: Optional[bool] = None) -> np.ndarray:
+        """Predictions of D (or the DNN) on ``dataset``, float32 on the
+        host, in chunks of ``batch_size`` (the last one shorter)."""
+        use_dnn = self._resolve_use_dnn(use_dnn)
+        model = self.state.dnn if use_dnn else self.state.d
+        bs = self.settings.batch_size
+        outs = []
+        with torch.inference_mode():
+            for start in range(0, len(dataset), bs):
+                x = model_layout(to_device(
+                    dataset.examples[start:start + bs], self.device))
+                outs.append(model(x)[0].float().cpu().numpy())
+        return np.concatenate(outs, axis=0)
 
-    def evaluate(self, dataset=None, use_dnn: Optional[bool] = None
-                 ) -> Dict[str, float]:
-        """Metrics of ``dataset`` (default: validation; the app's)."""
-        raise NotImplementedError
+    def validation_summaries(self, epoch: int, step: int) -> None:
+        """MAE/RMSE/NVE of D and the DNN on the validation split; D is
+        left out for ``dnn_only`` trials (its weights are untrained), and
+        nothing is written for an absent or empty split."""
+        if self.validation_dataset is None or \
+                self.validation_dataset.labels is None or \
+                len(self.validation_dataset) == 0:
+            return
+        labels = self.validation_dataset.labels
+        for use_dnn, writer in ((False, self.gan_summary_writer),
+                                (True, self.dnn_summary_writer)):
+            if use_dnn and self.state.dnn is None:
+                continue
+            if not use_dnn and self.settings.dnn_only:
+                continue
+            preds = self.predict(self.validation_dataset, use_dnn=use_dnn)
+            for name, value in regression_metrics(preds, labels).items():
+                writer.add_scalar(f"validation/{name}", value, step)
+
+    def evaluate(self, dataset: Optional[ArrayDataset] = None,
+                 use_dnn: Optional[bool] = None) -> Dict[str, float]:
+        """MAE/RMSE/NVE of ``dataset`` (default: the validation split).
+        ``use_dnn=None`` evaluates the trial's trained model: the DNN for
+        ``dnn_only`` trials, else D."""
+        dataset = dataset if dataset is not None else self.validation_dataset
+        if len(dataset) == 0:
+            raise ValueError("cannot evaluate an empty dataset (a len-0 "
+                             "split must not silently alias validation)")
+        preds = self.predict(dataset, use_dnn=use_dnn)
+        return regression_metrics(preds, dataset.labels)
 
     def test(self, use_dnn: Optional[bool] = None) -> Dict[str, float]:
         """Final held-out evaluation on the test split. Without one, the
@@ -304,3 +420,24 @@ class Experiment:
                 "VALIDATION metrics", stacklevel=2)
             return self.evaluate(self.validation_dataset, use_dnn=use_dnn)
         return self.evaluate(self.test_dataset, use_dnn=use_dnn)
+
+
+def model_layout(t: torch.Tensor) -> torch.Tensor:
+    """A batch as the models take it: a 4-D NHWC image batch becomes NCHW
+    in ``channels_last`` memory (a view); anything else passes as is."""
+    return t.permute(0, 3, 1, 2) if t.dim() == 4 else t
+
+
+def regression_metrics(predictions, labels) -> Dict[str, float]:
+    return {"MAE": float(metrics.mae(predictions, labels)),
+            "RMSE": float(metrics.rmse(predictions, labels)),
+            "NVE": float(metrics.nve(predictions, labels))}
+
+
+def check_finite(step_metrics: Dict[str, torch.Tensor], step: int) -> None:
+    """Raise ``FloatingPointError`` naming the first non-finite metric of
+    a step (``debug_nans``; reading the metrics synchronizes)."""
+    for name, value in step_metrics.items():
+        if not math.isfinite(float(value)):
+            raise FloatingPointError(
+                f"step {step}: {name} is {float(value)} (debug_nans)")

@@ -1,8 +1,9 @@
-"""Layers with flax semantics, GroupNorm + activation, and the DCGAN
-generator.
+"""Layers with flax semantics, GroupNorm + activation, the DCGAN
+generator and the convolutional regressor.
 
 The port of ``srgan_tpu.models.dcgan`` (``norm_act`` with ``impl="xla"``
-or ``"pallas"``, and ``DCGANGenerator``). Tensors are NCHW, and the models
+or ``"pallas"``, ``DCGANGenerator`` and ``ConvRegressor``). Tensors are
+NCHW, and the models
 keep them in ``channels_last`` memory, which is the JAX package's NHWC
 layout in memory.
 
@@ -29,7 +30,7 @@ What differs from torch's own layers, and is matched here:
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -259,3 +260,55 @@ class DCGANGenerator(nn.Module):
             m = (self.size - self.image_size) // 2
             x = x[:, :, m:m + self.image_size, m:m + self.image_size]
         return torch.tanh(x).float()
+
+
+def regressor_widths(image_size: int, base_width: int) -> List[int]:
+    """The conv widths of a :class:`ConvRegressor`: one k4 s2 stage per
+    halving of ``image_size`` down to 4 (counted as JAX counts it, by
+    floor halving), ``base_width · 2^min(i, 3)``."""
+    n_down = 0
+    size = image_size
+    while size > 4:
+        size //= 2
+        n_down += 1
+    return [base_width * (2 ** min(i, 3)) for i in range(n_down)]
+
+
+class ConvRegressor(nn.Module):
+    """Image → (scalar regression [B], features): k4 s2 ``SAME`` convs
+    (:func:`regressor_widths`), each followed by GroupNorm +
+    LeakyReLU(0.2), then ``Dense(feature_size)`` + LeakyReLU(0.2) (the
+    features) and ``Dense(1)``. Both outputs float32.
+
+    Input [B, ``channels``, ``image_size``, ``image_size``]. The flatten
+    before the dense layers is in NHWC order, as the JAX model's: then
+    ``Dense_0``'s rows are the flax kernel's, and on ``channels_last``
+    memory the flatten is a view.
+    """
+
+    def __init__(self, image_size: int = 64, channels: int = 3,
+                 base_width: int = 64, feature_size: int = 1024, *,
+                 dtype: torch.dtype = torch.float32, norm_impl: str = "xla",
+                 rng: torch.Generator):
+        super().__init__()
+        widths = regressor_widths(image_size, base_width)
+        self.convs = nn.ModuleList(
+            Conv(cin, cout, 4, 2, dtype=dtype, rng=rng)
+            for cin, cout in zip([channels] + widths, widths))
+        self.norms = nn.ModuleList(group_norm(w, dtype, norm_impl)
+                                   for w in widths)
+        side = image_size
+        for _ in widths:
+            side = -(-side // 2)  # SAME, stride 2
+        self.dense = Dense(side * side * widths[-1], feature_size,
+                           dtype=dtype, rng=rng)
+        self.head = Dense(feature_size, 1, dtype=dtype, rng=rng)
+
+    def forward(self, images: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = images
+        for conv, norm in zip(self.convs, self.norms):
+            x = norm_act(conv(x), norm, negative_slope=0.2)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        features = F.leaky_relu(self.dense(x), 0.2)
+        return self.head(features).squeeze(-1).float(), features.float()

@@ -1,7 +1,8 @@
 """The SR-GAN training step.
 
-The port of ``srgan_tpu.train``: ``make_optimizer``, ``init_train_state``
-and ``make_gan_train_step``. One step runs, in this order:
+The port of ``srgan_tpu.train``: ``make_optimizer``, ``init_train_state``,
+``make_gan_train_step`` and ``make_dnn_train_step`` (the supervised-only
+step of ``Settings.dnn_only``). One SR-GAN step runs, in this order:
 
 1. the D update: labeled, unlabeled and fake streams through one D
    forward over the concatenated 3B batch, plus the gradient penalty at
@@ -252,5 +253,29 @@ def make_gan_train_step(
 
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    return step
+
+
+def make_dnn_train_step(
+    settings: Settings,
+    labeled_loss_fn: Optional[Callable] = None,
+) -> Callable[..., Tuple[SRGANTrainState, Dict[str, Tensor]]]:
+    """Build the supervised-only step of ``dnn_only`` trials:
+    ``step(state, labeled_x, labels) -> (state, {"dnn_loss": ...})``.
+    Only the DNN and its (decayed) optimizer move; D and G stay at their
+    init. ``state.step`` advances as in the SR-GAN step."""
+    labeled_loss_fn = labeled_loss_fn or default_labeled_loss_fn(settings)
+
+    def step(state: SRGANTrainState, labeled_x: Tensor, labels
+             ) -> Tuple[SRGANTrainState, Dict[str, Tensor]]:
+        if state.dnn is None:
+            raise ValueError("the DNN-only step needs a DNN in the state")
+        pred, _ = state.dnn(labeled_x)
+        loss = labeled_loss_fn(pred, labels)
+        grads = torch.autograd.grad(loss, state.dnn_opt.params)
+        state.dnn_opt.step(grads)
+        state.step += 1
+        return state, {"dnn_loss": loss.detach()}
 
     return step

@@ -105,10 +105,39 @@ def test_presets_apply_under_the_flags(monkeypatch):
         cli.main(["crowd", "--nope", "1"])
 
 
+APP_FLAGS = ["--batch_size=4", "--steps_to_run=2", "--age_image_size=32",
+             "--model_base_width=8", "--latent_dimension=16",
+             "--hidden_size=8", "--labeled_dataset_size=6",
+             "--unlabeled_dataset_size=8", "--validation_dataset_size=5",
+             "--test_dataset_size=3", "--seed=1", "--summary_step_period=1",
+             "--data_parallel_devices=1"]
+
+
 @pytest.mark.parametrize("app", ["age", "coefficient", "driving"])
-def test_apps_not_ported_exit_naming_the_roadmap(app):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        cli.main([app, "--device", "cpu"])
+def test_apps_print_the_json_line_of_the_jax_cli(app, tmp_path, capsys):
+    """Each app trains and evaluates through the command line on the CPU
+    and prints the keys the JAX command line prints, finite; without
+    ``--device`` and with no card it raises; density maps are crowd-only."""
+    flags = APP_FLAGS + ["--logs_directory", str(tmp_path / "logs")]
+    ours = _run_cli(capsys, [app, "--device", "cpu"] + flags)
+    # The JAX side only needs its line's keys: no steps, so no step to
+    # compile.
+    assert jax_cli.main([app] + flags + ["--steps_to_run=0"]) == 0
+    theirs = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(ours) == set(theirs) == {"trial_directory", "validation",
+                                        "test"}
+    for split in ("validation", "test"):
+        assert set(ours[split]) == set(theirs[split]) == {"MAE", "RMSE",
+                                                          "NVE"}
+        assert all(np.isfinite(v) for v in ours[split].values())
+    assert os.listdir(os.path.join(ours["trial_directory"],
+                                   "checkpoints")) == ["step_2"]
+    with pytest.raises(SystemExit, match="crowd-only"):
+        cli.main([app, "--device", "cpu", "--export_density_maps",
+                  str(tmp_path / "maps.npz")] + flags)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([app] + flags)
 
 
 def _state_tensors(state):
@@ -270,7 +299,12 @@ def test_the_new_modules_import_no_jax():
     code = ("import sys, srgan_tpu_torch.__main__, srgan_tpu_torch.checkpoint, "
             "srgan_tpu_torch.presets, srgan_tpu_torch.ops.density, "
             "srgan_tpu_torch.data.crowd, "
-            "srgan_tpu_torch.tools.norm_bandwidth_bench; "
+            "srgan_tpu_torch.tools.norm_bandwidth_bench, "
+            "srgan_tpu_torch.data.core, srgan_tpu_torch.data.coefficient, "
+            "srgan_tpu_torch.data.age, srgan_tpu_torch.data.driving, "
+            "srgan_tpu_torch.models.mlp, srgan_tpu_torch.apps.common, "
+            "srgan_tpu_torch.apps.coefficient, srgan_tpu_torch.apps.age, "
+            "srgan_tpu_torch.apps.driving; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'PIL', 'scipy', "
             "'srgan_tpu')); print(bad); sys.exit(1 if bad else 0)")

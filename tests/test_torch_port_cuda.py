@@ -286,6 +286,40 @@ def test_fused_norm_kernels_repeat_bit_for_bit(shape, groups):
             assert torch.equal(a, b)
 
 
+# Every norm of the age and driving SR-GAN step at 64 px, batch 32, base
+# width 64, with its slope: D over the 3B batch and D and the DNN over B
+# (LeakyReLU 0.2), G over B (ReLU); down to 16 rows an example.
+AGE_NORM_CASES = [((b, hw, c), 0.2) for b in (96, 32)
+                  for hw, c in ((1024, 64), (256, 128), (64, 256), (16, 512))
+                  ] + [((32, hw, c), 0.0) for hw, c in (
+                      (16, 512), (64, 256), (256, 128), (1024, 64))]
+
+
+@pytest.mark.parametrize("shape,slope", AGE_NORM_CASES)
+def test_fused_norm_kernels_equal_plain_at_the_age_shapes(shape, slope):
+    """bfloat16, the tolerances of chip_smoke.py's flagship check: y and
+    dx within one bfloat16 ulp of each element plus 1e-5 of the largest,
+    mean and rstd at rtol 1e-5, dscale and dbias within 1e-4 of their
+    largest."""
+    x, scale, bias, dy = _norm_inputs(shape, torch.bfloat16)
+    y, mean, rstd = fn._launch_fwd(x, scale, bias, 32, slope, 1e-6)
+    dx, dscale, dbias = fn._launch_bwd(x, scale, bias, mean, rstd, dy, 32,
+                                       slope)
+    torch.cuda.synchronize()
+    want_y, want_mean, want_rstd = fn.group_norm_act_fwd_plain(
+        x, scale, bias, 32, slope, 1e-6)
+    want = fn.group_norm_act_bwd_plain(x, scale, bias, mean, rstd, dy, 32,
+                                       slope)
+    for got, ref in ((y, want_y), (dx, want[0])):
+        ref = ref.float()
+        bound = 2 ** -7 * ref.abs() + 1e-5 * float(ref.abs().max())
+        assert bool(((got.float() - ref).abs() <= bound).all())
+    torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=0)
+    torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
+    _within(dscale, want[1], 1e-4)
+    _within(dbias, want[2], 1e-4)
+
+
 def test_fused_norm_occupancy_query():
     """Every tiling the flagship's largest shapes take fits the card at
     least once."""
