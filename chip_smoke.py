@@ -8,10 +8,12 @@ Phases, each of which fails the run if it fails:
 1. build   — compile every CUDA kernel of the port from the sources in
              this checkout (``nvcc`` for sm_90a, one process per source,
              all started together; ``patches.cu`` holds both patch
-             samplers), timed;
+             samplers) and, beside them, the host tier's library from
+             ``native/srgan_io.cc`` (``g++``), timed;
 2. kernels — the patch-sampler kernel against its plain PyTorch version
              at the flagship shapes, for uint8 images and float32 and
-             bfloat16 density labels: labels exactly, images within 1e-6;
+             bfloat16 density labels, one and two channels (the kNN/iKNN
+             label tensor): labels exactly, images within 1e-6;
              the rescale sampler likewise at windows 168/224/280 (images
              within 1e-6, labels within 1e-5 of their largest value);
              both over a 1000-image source (the flagship's split), timed
@@ -21,8 +23,9 @@ Phases, each of which fails the run if it fails:
              more on a 16-image source as the earlier runs timed it;
              then the fused GroupNorm + activation forward and backward
              kernels against their plain versions at every norm shape of
-             the flagship step and of the age SR-GAN step (down to 16
-             rows an example), in bfloat16 (tolerances at
+             the flagship step, of the age SR-GAN step (down to 16
+             rows an example) and of JointDCNN's 512-channel stage (a
+             backward that streams rows), in bfloat16 (tolerances at
              ``check_norm_kernels``), each shape's tiling and its
              clusters on the card at once printed, the times weighted by
              each shape's launches in each step; the density kernel
@@ -44,7 +47,9 @@ Phases, each of which fails the run if it fails:
              weights, patches and draws); and for the other apps one
              coefficient step, one age SR-GAN step under each norm path
              and one DNN-only step, each then ``predict`` on the
-             validation split (``check_small_app_step``);
+             validation split (``check_small_app_step``); and the crowd
+             evaluation and step with iKNN targets (both norm paths),
+             JointDCNN and the pyramid;
 5. train   — ``CrowdExperiment(settings).train()`` at the flagship
              configuration (batch 120, 224-px patches, base width 64,
              bfloat16 compute, a synthetic 384×512 database of 16/16/16
@@ -90,12 +95,26 @@ Phases, each of which fails the run if it fails:
              ``main``, then ``python -m srgan_tpu_torch age`` on its npz
              at full width under "pallas": 4 steps with checkpoints,
              restored bit for bit, evaluate-only; and ``coefficient`` and
-             ``driving`` for a few steps, each JSON line's metrics finite.
+             ``driving`` for a few steps, each JSON line's metrics finite;
+12. tiers  — the rest of the crowd app through ``CrowdExperiment(
+             settings, device="cuda").train()`` at the flagship widths
+             under "pallas", 8 steps with validation every 4
+             (``CROWD_TIER_RUNS``): iKNN targets (one label call a step
+             on two channels), JointDCNN, the pyramid, the window tier
+             (32 of 64 images, 4 slices, a refresh every 2 steps, with
+             rescale: its refreshes, rotation and buffers checked) and
+             the host tier (no sampler launch a step), each run's
+             launches asserted, then 20 timed steps of each (ms/step,
+             images/s, peak allocated; the window's refreshes' host
+             time); then phase 7's raw database preprocessed with
+             ``--label-type iknn`` and the command line on it with iKNN
+             targets, JointDCNN and a window: 4 steps with checkpoints,
+             evaluate-only.
 
 Prints the kernel table as one JSON line (each kernel's launches counted
 on the path that runs it: the training kernels in the rescale run of
 phase 5, the density kernel in phase 7, the copy kernel in phase 9;
-phases 4, 10 and 11 count the norm launches of each run they drive and
+phases 4, 10, 11 and 12 count the launches of each run they drive and
 assert them),
 then the card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": ...}``.
@@ -194,6 +213,13 @@ def norm_launches_per_step(norms: int, dnn_only: bool = False):
 if tuple(sum(shape[4 + i] for shape in AGE_NORM_SHAPES)
          for i in range(2)) != norm_launches_per_step(4):
     raise AssertionError("AGE_NORM_SHAPES' launches do not sum to 28 and 24")
+# JointDCNN's 512-channel last stage (56²×512, slope 0.2) in the flagship
+# step, in NORM_SHAPES' form: once each way over the 3B batch, 4 times
+# each way over B (as every D and DNN stage). Its backward tiling holds 99
+# of each block's 196 rows and streams the rest.
+DCNN_NORM_SHAPES = [(360, 56 * 56, 512, 0.2, 1, 1),
+                    (120, 56 * 56, 512, 0.2, 4, 4)]
+
 # Kernel launches in one validation pass at the flagship (crowd.py
 # validation_summaries): G's sample grid of 4 (5 norms); per model, D and
 # then the DNN, the maps of 16 validation images in chunks of 8
@@ -205,6 +231,30 @@ if tuple(sum(shape[4 + i] for shape in AGE_NORM_SHAPES)
 LAUNCHES_PER_VALIDATION = {"extract_patches": 4, "group_norm_act_fwd": 21,
                            "group_norm_act_bwd": 0,
                            "extract_rescaled_patches": 0}
+
+
+def crowd_norm_launches(d_norms: int, g_norms: int = 5):
+    """(forward, backward) fused-norm launches of one crowd SR-GAN step
+    whose D and DNN have ``d_norms`` norms and G ``g_norms``: D runs 4
+    forwards (3B, interpolates, unlabeled, fake) and 4 backwards (3B,
+    interpolates twice, fake), the DNN one of each, G 2 forwards and one
+    backward."""
+    return 5 * d_norms + 2 * g_norms, 5 * d_norms + g_norms
+
+
+def crowd_launches_per_validation(d_norms: int):
+    """Kernel launches of one flagship validation pass
+    (``LAUNCHES_PER_VALIDATION``) for D and DNN models of ``d_norms``
+    norms."""
+    return dict(LAUNCHES_PER_VALIDATION,
+                group_norm_act_fwd=5 + 2 * 2 * d_norms)
+
+
+if (crowd_norm_launches(4) != tuple(NORM_LAUNCHES_PER_STEP.values())
+        or crowd_launches_per_validation(4) != LAUNCHES_PER_VALIDATION):
+    raise AssertionError("crowd_norm_launches(4) or "
+                         "crowd_launches_per_validation(4) is not the "
+                         "flagship's")
 # The raw database of the preprocessing phase: images per split, and the
 # raw image size (UCF-QNRF's images are photographs of about this size and
 # larger; resize mode halves these).
@@ -323,9 +373,14 @@ def check_kernels(dev):
     images = torch.randint(0, 256, (n, h, w, 3), generator=gen, device=dev,
                            dtype=torch.uint8)
     labels = torch.rand((n, h, w, 1), generator=gen, device=dev) * 1e-2
+    # The kNN/iKNN label tensor: (density, aux) channels.
+    aux_labels = torch.rand((n, h, w, 2), generator=gen, device=dev) * 1e-2
     cases = [("images uint8", images, 2.0 / 255.0, -1.0, 1e-6),
              ("labels float32", labels, 1.0, 0.0, 0.0),
-             ("labels bfloat16", labels.to(torch.bfloat16), 1.0, 0.0, 0.0)]
+             ("labels bfloat16", labels.to(torch.bfloat16), 1.0, 0.0, 0.0),
+             ("labels float32 C=2", aux_labels, 1.0, 0.0, 0.0),
+             ("labels bfloat16 C=2", aux_labels.to(torch.bfloat16), 1.0, 0.0,
+              0.0)]
     worst = 0.0
     times, bounds = {}, {}
     for name, src, scale, shift, tol in cases:
@@ -366,18 +421,25 @@ def check_kernels(dev):
         l2_source_ms(f"extract_patches [{name}]", extract_patches, src,
                      indices, offsets=offsets, flips=flips, **call)
         times[name] = (t_kernel, t_plain)
-    del images, labels, cases, src
+    del images, labels, aux_labels, cases, src
     torch.cuda.empty_cache()
     t_kernel, t_plain = times["images uint8"]
     bound_ms, bound_by = least_ms(
         b * p * p * 3 * (1 + 4) + b * 16, 2 * b * p * p * 3)
     # No single PyTorch call gathers, crops, flips and normalizes.
+    # A kNN/iKNN step's label call takes both channels.
+    aux_step = (2 * times["images uint8"][0]
+                + times["labels float32 C=2"][0])
+    log(f"kernel extract_patches, a kNN/iKNN step's two image calls and "
+        f"one two-channel label call: {aux_step:.4f} ms")
     return {"name": "extract_patches", "route": "cuda",
             "source": "srgan_tpu_torch/csrc/patches.cu",
             "replaces": "srgan_tpu/ops/patches.py:49",
             "launches": None, "max_abs_err": worst, "ms": t_kernel,
             "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": None, "aux_step_ms": aux_step,
+            "aux_labels_ms": times["labels float32 C=2"][0],
+            "aux_labels_bound_ms": bounds["labels float32 C=2"],
             **sampler_step("extract_patches", times, bounds)}
 
 
@@ -557,10 +619,11 @@ def _check_norm_shape(dev, gen, b, hw, c, slope, per_step, library=False,
     # 15 (backward) per element.
     vectors = 4 * (2 * c + 2 * b * 32)
     xb = x.numel() * x.element_size()
-    out = {"err": err, "ms": {},
-           "bound": {"fwd": least_ms(2 * xb + vectors, 8 * x.numel()),
+    ops = {"fwd": 8 * x.numel(), "bwd": 15 * x.numel()}
+    out = {"err": err, "ms": {}, "traffic_bound": {},
+           "bound": {"fwd": least_ms(2 * xb + vectors, ops["fwd"]),
                      "bwd": least_ms(3 * xb + vectors + 8 * c,
-                                     15 * x.numel())}}
+                                     ops["bwd"])}}
     for (kind, (plain, kernel)), launches in zip(pairs.items(), per_step):
         t_kernel, t_plain = paired_ms(plain, kernel, 10, queued=queued)
         host = ""
@@ -576,12 +639,18 @@ def _check_norm_shape(dev, gen, b, hw, c, slope, per_step, library=False,
         # The bytes the launch moved: one pass, plus any streamed rows read
         # again.
         moved = fn.norm_traffic_bytes(b, hw, c, x.dtype, kind, tiling)
+        # The bound with the streamed rows' second read added (the same
+        # as the bound where every row is resident).
+        out["traffic_bound"][kind] = least_ms(
+            moved + vectors + (8 * c if kind == "bwd" else 0), ops[kind])
         log(f"kernel group_norm_act {kind} {shape}: max|err| "
             f"{err[kind]:g}, kernel {t_kernel:.4f} ms "
             f"({moved / t_kernel / 1e6:.1f} GB/s of {moved / xb:g} units "
             f"moved{', queued' if queued else ''}{host}), plain "
             f"{t_plain:.4f} ms, bound "
-            f"{out['bound'][kind][0]:.4f} ms; tiling cluster "
+            f"{out['bound'][kind][0]:.4f} ms (with the streamed rows "
+            f"read again {out['traffic_bound'][kind][0]:.4f} ms); tiling "
+            f"cluster "
             f"{tiling.cluster}, {tiling.rows_per_block} rows a block, "
             f"{tiling.resident_rows} resident, {tiling.smem_bytes} B shared "
             f"memory, max active clusters "
@@ -600,7 +669,8 @@ def _weighted_norm_step(dev, gen, shapes, what, worst, queued=False):
     and return {kind: {"ms", "bound_ms"}}, each shape's kernel time and
     bound weighted by its launches a step; ``worst`` (by kind) takes the
     largest error. The first shape's full results come back too."""
-    step = {kind: {"ms": 0.0, "bound_ms": 0.0} for kind in ("fwd", "bwd")}
+    step = {kind: {"ms": 0.0, "bound_ms": 0.0, "traffic_bound_ms": 0.0}
+            for kind in ("fwd", "bwd")}
     first = None
     for b, hw, c, slope, *per_step in shapes:
         got = _check_norm_shape(dev, gen, b, hw, c, slope, per_step,
@@ -610,11 +680,14 @@ def _weighted_norm_step(dev, gen, shapes, what, worst, queued=False):
             worst[kind] = max(worst[kind], got["err"][kind])
             step[kind]["ms"] += launches * got["ms"][kind][0]
             step[kind]["bound_ms"] += launches * got["bound"][kind][0]
+            step[kind]["traffic_bound_ms"] += (
+                launches * got["traffic_bound"][kind][0])
     for kind, t in step.items():
         count = sum(shape[4 + (kind == "bwd")] for shape in shapes)
         log(f"kernel group_norm_act {kind}, {what}'s {count} launches: "
             f"{t['ms']:.4f} ms a step, bound {t['bound_ms']:.4f} ms, "
-            f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
+            f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound (with the "
+            f"streamed rows read again {t['traffic_bound_ms']:.4f} ms)")
     return step, first
 
 
@@ -657,6 +730,9 @@ def check_norm_kernels(dev):
     # The age shapes' calls take the host longer than the card: queued.
     age, _ = _weighted_norm_step(dev, gen, AGE_NORM_SHAPES,
                                  "the age SR-GAN step", worst, queued=True)
+    # JointDCNN's last stage, whose backward streams rows.
+    dcnn, _ = _weighted_norm_step(dev, gen, DCNN_NORM_SHAPES,
+                                  "JointDCNN's 512-channel stage", worst)
     log("kernel group_norm_act: mean/rstd within rtol 1e-5, dscale/dbias "
         "within 1e-4 of their largest, at every shape")
     return [{"name": f"group_norm_act_{kind}", "route": "cuda",
@@ -670,7 +746,10 @@ def check_norm_kernels(dev):
              "step_ms": step[kind]["ms"],
              "step_bound_ms": step[kind]["bound_ms"],
              "age_step_ms": age[kind]["ms"],
-             "age_step_bound_ms": age[kind]["bound_ms"]}
+             "age_step_bound_ms": age[kind]["bound_ms"],
+             "dcnn_stage_ms": dcnn[kind]["ms"],
+             "dcnn_stage_bound_ms": dcnn[kind]["bound_ms"],
+             "dcnn_stage_traffic_bound_ms": dcnn[kind]["traffic_bound_ms"]}
             for kind, line in (("fwd", 178), ("bwd", 226))]
 
 
@@ -906,9 +985,11 @@ def check_second_order(dev):
         f"backward) {launched}")
 
 
-def check_small_step(dev, norm_impl, factors=()):
+def check_small_step(dev, norm_impl, factors=(), **over):
     """Phase 4: at a tiny size, float32, on the card against the CPU: the
-    grid evaluation on the init weights, then one training step.
+    grid evaluation on the init weights, then one training step; ``over``
+    sets the model or the label type (``crowd_model``,
+    ``crowd_label_type``).
 
     Tolerances. Patches: fixed ones exactly; rescaled ones as the rescale
     kernel's check (images 1e-6, labels 1e-5 of their largest). Step
@@ -922,7 +1003,9 @@ def check_small_step(dev, norm_impl, factors=()):
     from srgan_tpu_torch.train import init_train_state, set_float32_precision
     set_float32_precision()
     settings = Settings(norm_impl=norm_impl, crowd_rescale_factors=factors,
-                        **TINY)
+                        **dict(TINY, **over))
+    what = ", ".join([norm_impl, f"factors {factors}"]
+                     + [f"{k} {v}" for k, v in over.items()])
     launches = (fn._launch_fwd.launches, extract_rescaled_patches.launches)
     results = []
     args = None
@@ -957,28 +1040,26 @@ def check_small_step(dev, norm_impl, factors=()):
             1e-5 * float(a.abs().max()) if name == "labels" else 1e-6)
         err = float((a - c).abs().max())
         if not err <= tol:
-            raise AssertionError(f"small step ({norm_impl}, factors "
-                                 f"{factors}): {name} patches on the card "
-                                 f"differ from the CPU's by {err} > {tol}")
+            raise AssertionError(f"small step ({what}): {name} patches on "
+                                 f"the card differ from the CPU's by {err} "
+                                 f"> {tol}")
     for name, a, c in zip(("maps", "counts"), cpu_eval, gpu_eval):
         np.testing.assert_allclose(
             c, a, rtol=1e-4, atol=1e-3 * float(np.abs(a).max()),
-            err_msg=f"small grid evaluation ({norm_impl}): {name}")
+            err_msg=f"small grid evaluation ({what}): {name}")
     for k, v in cpu_metrics.items():
         if not math.isclose(gpu_metrics[k], v, rel_tol=1e-3, abs_tol=1e-5):
-            raise AssertionError(f"small step ({norm_impl}): {k} is "
+            raise AssertionError(f"small step ({what}): {k} is "
                                  f"{gpu_metrics[k]} on the card, {v} on the "
                                  f"CPU")
     launches = (fn._launch_fwd.launches - launches[0],
                 extract_rescaled_patches.launches - launches[1])
     if ((launches[0] > 0) != (norm_impl == "pallas")
             or launches[1] != (3 if factors else 0)):
-        raise AssertionError(f"small step ({norm_impl}, factors {factors}): "
-                             f"(norm forward, rescale) kernels launched "
-                             f"{launches} times")
-    log(f"small fp32, norm_impl {norm_impl}, rescale factors {factors}, "
-        f"card vs CPU ((norm forward, rescale) launches on the card "
-        f"{launches}): maps max|err| "
+        raise AssertionError(f"small step ({what}): (norm forward, rescale) "
+                             f"kernels launched {launches} times")
+    log(f"small fp32, {what}, card vs CPU ((norm forward, rescale) "
+        f"launches on the card {launches}): maps max|err| "
         f"{float(np.abs(gpu_eval[0] - cpu_eval[0]).max()):g} of "
         f"{float(np.abs(cpu_eval[0]).max()):g}, counts "
         f"{np.array2string(gpu_eval[1], precision=6)}/"
@@ -1102,6 +1183,32 @@ def check_validation(trial_directory: str, steps) -> None:
                         raise AssertionError(f"{path} is not a PNG")
 
 
+def check_crowd_trial(trial_directory: str, steps: int) -> None:
+    """A crowd trial's 7 losses finite at every step, its validation
+    scalars finite and its PNGs written every ``VALIDATION_PERIOD``
+    steps; the first and last losses and the last validation logged."""
+    losses = read_scalars(trial_directory)
+    merged = {}
+    for sub in ("GAN", "DNN"):
+        for step, values in losses[sub].items():
+            merged.setdefault(step, {}).update(
+                {k: v for k, v in values.items()
+                 if not k.startswith("validation/")})
+    merged = {k: v for k, v in merged.items() if v}
+    if sorted(merged) != list(range(steps)):
+        raise AssertionError(f"summaries for steps {sorted(merged)}")
+    for step, values in sorted(merged.items()):
+        if len(values) != 7 or not all(map(math.isfinite, values.values())):
+            raise AssertionError(f"step {step}: losses {values}")
+    check_validation(trial_directory,
+                     range(VALIDATION_PERIOD, steps + 1, VALIDATION_PERIOD))
+    log("losses, first step: " + json.dumps(merged[0]))
+    log("losses, last step:  " + json.dumps(merged[steps - 1]))
+    log("validation, last:   " + json.dumps(
+        {sub: {k: v for k, v in losses[sub][steps].items()
+               if k.startswith("validation/")} for sub in ("GAN", "DNN")}))
+
+
 def train_main_path(settings, dev, card: str) -> dict:
     """Phases 5 and 6: ``CrowdExperiment(settings).train()`` with
     validation every ``VALIDATION_PERIOD`` steps, checked, then further
@@ -1152,26 +1259,7 @@ def train_main_path(settings, dev, card: str) -> dict:
                 f"{name} launched {launches[name]} times in {steps} steps "
                 f"and {validations} validation passes, not {want} ({count} "
                 f"per step, {per_validation[name]} per validation pass)")
-    losses = read_scalars(exp.trial_directory)
-    merged = {}
-    for sub in ("GAN", "DNN"):
-        for step, values in losses[sub].items():
-            merged.setdefault(step, {}).update(
-                {k: v for k, v in values.items()
-                 if not k.startswith("validation/")})
-    merged = {k: v for k, v in merged.items() if v}
-    if sorted(merged) != list(range(steps)):
-        raise AssertionError(f"summaries for steps {sorted(merged)}")
-    for step, values in sorted(merged.items()):
-        if len(values) != 7 or not all(map(math.isfinite, values.values())):
-            raise AssertionError(f"step {step}: losses {values}")
-    check_validation(exp.trial_directory,
-                     range(VALIDATION_PERIOD, steps + 1, VALIDATION_PERIOD))
-    log("losses, first step: " + json.dumps(merged[0]))
-    log("losses, last step:  " + json.dumps(merged[steps - 1]))
-    log("validation, last:   " + json.dumps(
-        {sub: {k: v for k, v in losses[sub][steps].items()
-               if k.startswith("validation/")} for sub in ("GAN", "DNN")}))
+    check_crowd_trial(exp.trial_directory, steps)
 
     epochs = exp.epoch_batch_iterators()
 
@@ -1720,6 +1808,259 @@ def bandwidth_main_path(entry: dict) -> None:
         raise AssertionError(f"the bandwidth tool printed {records}")
 
 
+# Phase 12's runs, each at the flagship (FLAGSHIP, "pallas") with these
+# settings over it. The window run's splits are 64 images, so that a
+# window of 32 holds half of each.
+CROWD_TIER_RUNS = [
+    ("iknn", dict(crowd_label_type="iknn")),
+    ("jointdcnn", dict(crowd_model="jointdcnn")),
+    ("pyramid", dict(crowd_model="pyramid")),
+    ("window", dict(crowd_hbm_window=32, crowd_window_slices=4,
+                    crowd_window_refresh_period=2, labeled_dataset_size=64,
+                    unlabeled_dataset_size=64,
+                    crowd_rescale_factors=RESCALE)),
+    ("host", dict(crowd_host_pipeline=True)),
+]
+# Norms in each crowd model's D (and DNN).
+D_NORMS = {"jointcnn": 4, "jointdcnn": 6, "pyramid": 4}
+
+
+def _check_window(exp, settings, steps: int) -> None:
+    """The window run: every window refreshed at each period boundary of
+    steps 0..steps−1, its resident ids moved away from the initial fill,
+    and its device buffers equal to the host rows of ``resident_ids``."""
+    from srgan_tpu_torch.data.window import SliceStream
+    period = settings.crowd_window_refresh_period
+    boundaries = len(range(period, steps, period))
+    data = exp._device_data
+    host = {"labeled_images": exp.labeled_db.images,
+            "labeled_density": exp._stacked_labels(),
+            "unlabeled_images": exp.unlabeled_db.images}
+    for window, stream in zip(exp._windows, (7, 8)):
+        if window.refresh_count != boundaries:
+            raise AssertionError(f"window {window.names}: "
+                                 f"{window.refresh_count} refreshes in "
+                                 f"{steps} steps, not {boundaries}")
+        first = SliceStream(window.num_examples, window.slice_size,
+                            [settings.seed, stream, 0])
+        initial = np.concatenate([first.next_ids()
+                                  for _ in range(window.num_slices)])
+        resident = window.resident_ids()
+        if np.array_equal(resident, initial):
+            raise AssertionError(f"window {window.names} never rotated")
+        for name in window.names:
+            got = data[name].cpu()
+            want = torch.from_numpy(host[name][resident]).to(got.dtype)
+            if not torch.equal(got, want):
+                raise AssertionError(f"window {name} differs from the host "
+                                     f"rows of its resident ids")
+    log(f"window: {len(exp._windows)} windows of "
+        f"{settings.crowd_hbm_window} of {settings.labeled_dataset_size} "
+        f"images, {boundaries} refreshes each in {steps} steps (period "
+        f"{period}: steps {list(range(period, steps, period))}), resident "
+        f"ids moved, buffers equal to the host rows")
+
+
+def tier_train_main_path(name, settings, dev, card: str) -> dict:
+    """Phase 12, one run: ``CrowdExperiment(settings, device="cuda")
+    .train()`` for ``settings.steps_to_run`` steps with validation every
+    ``VALIDATION_PERIOD``: losses and validation scalars finite, the
+    kernels launched as the model and the tier give (no sampler launch a
+    step on the host tier; the label call on two channels with a kNN/iKNN
+    target), the window run's windows checked (``_check_window``); then
+    the inputs rebuilt (``train()`` closed them) and ``TIMED_STEPS``
+    steps timed. The host time of every window refresh applied is
+    logged."""
+    import warnings
+
+    from srgan_tpu_torch import CrowdExperiment
+    from srgan_tpu_torch.apps import crowd as crowd_app
+    from srgan_tpu_torch.data.window import HBMWindow
+    from srgan_tpu_torch.ops import fused_norm as fn
+    from srgan_tpu_torch.ops.patches import (extract_patches,
+                                             extract_rescaled_patches)
+    counters = {"extract_patches": extract_patches,
+                "extract_rescaled_patches": extract_rescaled_patches,
+                "group_norm_act_fwd": fn._launch_fwd,
+                "group_norm_act_bwd": fn._launch_bwd}
+    for counter in counters.values():
+        counter.launches = 0
+    channels, apply_s = [], []
+    real_extract, real_apply = crowd_app.extract_patches, \
+        HBMWindow._apply_staged
+
+    def recording_extract(images, *args, **kwargs):
+        channels.append(images.shape[-1])
+        return real_extract(images, *args, **kwargs)
+
+    def timed_apply(window):
+        t0 = time.perf_counter()
+        real_apply(window)
+        apply_s.append(time.perf_counter() - t0)
+
+    crowd_app.extract_patches = recording_extract
+    HBMWindow._apply_staged = timed_apply
+    try:
+        exp = CrowdExperiment(settings, device=dev)
+        steps = settings.steps_to_run
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            state = exp.train()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+        log(f"tier {name}: {steps} steps and {steps // VALIDATION_PERIOD} "
+            f"validation passes through CrowdExperiment.train() in "
+            f"{time.perf_counter() - t0:.1f} s (data set-up included); "
+            f"kernel launches {json.dumps(launches)}; warnings "
+            f"{[str(w.message)[:60] for w in caught]}")
+        if state.step != steps:
+            raise AssertionError(f"trained {state.step} steps, not {steps}")
+        host = settings.crowd_host_pipeline
+        rescale = bool(settings.crowd_rescale_factors)
+        aux = settings.crowd_label_type != "density"
+        d_norms = D_NORMS[settings.crowd_model]
+        validations = steps // VALIDATION_PERIOD
+        per_step = dict(zip(("group_norm_act_fwd", "group_norm_act_bwd"),
+                            crowd_norm_launches(d_norms)))
+        per_step["extract_patches"] = 0 if host or rescale else 3
+        per_step["extract_rescaled_patches"] = 3 if rescale else 0
+        per_validation = crowd_launches_per_validation(d_norms)
+        for kernel, count in per_step.items():
+            want = count * steps + per_validation[kernel] * validations
+            if launches[kernel] != want:
+                raise AssertionError(
+                    f"tier {name}: {kernel} launched {launches[kernel]} "
+                    f"times, not {want} ({count} a step, "
+                    f"{per_validation[kernel]} a validation pass)")
+        two = channels.count(2)
+        if two != (steps if aux else 0):
+            raise AssertionError(f"tier {name}: {two} label calls on two "
+                                 f"channels in {steps} steps")
+        if host and not any("crowd_host_pipeline" in str(w.message)
+                            for w in caught):
+            raise AssertionError("the host tier did not warn")
+        check_crowd_trial(exp.trial_directory, steps)
+        if settings.crowd_hbm_window:
+            _check_window(exp, settings, steps)
+        trained_applies = len(apply_s)
+
+        # Timed steps: train() closed the windows and the prefetchers.
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            exp.prepare_train_step()
+        epochs = exp.epoch_batch_iterators()
+        stream = (batch for epoch in epochs for batch in epoch)
+        for _ in range(2):
+            exp.state, _ = exp._step(*next(stream))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            exp.state, metrics = exp._step(*next(stream))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        if not all(math.isfinite(float(v)) for v in metrics.values()):
+            raise AssertionError(f"tier {name} timed steps: {metrics}")
+        out = {"ms_per_step": 1e3 * elapsed / TIMED_STEPS,
+               "images_per_s": settings.batch_size * TIMED_STEPS / elapsed,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if apply_s:
+            out["apply_ms"] = [round(1e3 * t, 3) for t in apply_s]
+            out["applies_in_train"] = trained_applies
+        log(f"time (tier {name}): {out['ms_per_step']:.2f} ms/step, "
+            f"{out['images_per_s']:.2f} images/s (batch "
+            f"{settings.batch_size}, {TIMED_STEPS} steps, {dev}: {card}), "
+            f"peak allocated {out['peak_gib']:.2f} GiB"
+            + (f"; window refreshes applied {len(apply_s)}, host ms each "
+               f"{out['apply_ms']}" if apply_s else ""))
+        exp.close()
+    finally:
+        crowd_app.extract_patches = real_extract
+        HBMWindow._apply_staged = real_apply
+    del exp, state, stream, epochs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def aux_cli_main_path(dev, raw_root: str, root: str) -> None:
+    """Phase 12's command line: phase 7's raw database preprocessed with
+    ``--label-type iknn`` (one density launch per image), then ``python
+    -m srgan_tpu_torch crowd`` at the ``crowd_flagship`` preset with
+    iKNN targets, JointDCNN and a window of 8 of the 16 training images:
+    4 steps with checkpoints every 2 (the norm launches of JointDCNN
+    asserted), then evaluate-only from the trial, whose validation MAE
+    equals the trained one."""
+    import contextlib
+    import io
+    import shutil
+
+    from srgan_tpu_torch.data.crowd import CrowdDatabase
+    from srgan_tpu_torch.data.crowd import main as preprocess
+    from srgan_tpu_torch.ops import fused_norm as fn
+    from srgan_tpu_torch.ops.density import density_maps
+    shutil.rmtree(root, ignore_errors=True)
+    db_dir = os.path.join(root, "db")
+    density_maps.launches = 0
+    t0 = time.perf_counter()
+    for split in RAW_SPLITS:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = preprocess([os.path.join(raw_root, split),
+                             os.path.join(db_dir, f"{split}.npz"),
+                             "--height", "384", "--width", "512", "--sigma",
+                             "8", "--label-type", "iknn"])
+        if rc != 0:
+            raise AssertionError(f"preprocessing {split} returned {rc}")
+    images = sum(RAW_SPLITS.values())
+    if density_maps.launches != images:
+        raise AssertionError(f"density kernel launched "
+                             f"{density_maps.launches} times for {images}")
+    labeled = CrowdDatabase.load(os.path.join(db_dir, "labeled.npz"))
+    if labeled.label_type != "iknn" or labeled.aux_maps is None or \
+            not np.isfinite(labeled.aux_maps).all():
+        raise AssertionError("the iKNN database has no finite aux maps")
+    log(f"aux cli preprocess: {images} images with --label-type iknn in "
+        f"{time.perf_counter() - t0:.2f} s; density launches "
+        f"{density_maps.launches}")
+    base = ["crowd", "--preset", "crowd_flagship", "--norm_impl=pallas",
+            f"--crowd_database_path={db_dir}",
+            f"--logs_directory={os.path.join(root, 'logs')}",
+            "--trial_name=chip_smoke_aux_cli", "--summary_step_period=1",
+            "--seed=0", "--crowd_label_type", "iknn", "--crowd_model",
+            "jointdcnn", "--crowd_hbm_window", "8", "--crowd_window_slices",
+            "4", "--crowd_window_refresh_period", "1"]
+    fn._launch_fwd.launches = fn._launch_bwd.launches = 0
+    t0 = time.perf_counter()
+    first = _cli(base + ["--steps_to_run", "4", "--save_step_period", "2",
+                         "--validation_step_period", "4"])
+    _finite_metrics("aux cli train", first)
+    # 4 steps, the validation pass at step 4, then the command line's
+    # evaluate() and test(): D over 2 chunks of validation images and 1
+    # of test images.
+    fwd, bwd = crowd_norm_launches(D_NORMS["jointdcnn"])
+    want = (4 * fwd + crowd_launches_per_validation(6)["group_norm_act_fwd"]
+            + 6 * (2 + 1), 4 * bwd)
+    got = (fn._launch_fwd.launches, fn._launch_bwd.launches)
+    if got != want:
+        raise AssertionError(f"aux cli: norm launches {got}, not {want}")
+    trial = first["trial_directory"]
+    checkpoints = sorted(os.listdir(os.path.join(trial, "checkpoints")))
+    if checkpoints != ["step_2", "step_4"]:
+        raise AssertionError(f"aux cli checkpoints {checkpoints}")
+    log(f"aux cli train: 4 steps in {time.perf_counter() - t0:.1f} s, norm "
+        f"launches {got}; {json.dumps(first)}")
+    evaluated = _cli(base + ["--evaluate_only", "--load_model_path", trial])
+    _finite_metrics("aux cli evaluate", evaluated)
+    if not math.isclose(evaluated["validation"]["MAE"],
+                        first["validation"]["MAE"], rel_tol=1e-3):
+        raise AssertionError(f"aux cli evaluate-only MAE "
+                             f"{evaluated['validation']['MAE']}, trained "
+                             f"{first['validation']['MAE']}")
+    log(f"aux cli evaluate: {json.dumps(evaluated)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1749,10 +2090,25 @@ def main() -> int:
         return (f"build: {name}.cu -> {os.path.relpath(library, REPO)} in "
                 f"{time.perf_counter() - t0:.2f} s")
 
+    def build_native():
+        """The host tier's library, built by this run from the checkout's
+        ``native/srgan_io.cc``."""
+        from srgan_tpu_torch.io import native
+        path = native.library_path()
+        if os.path.exists(path):
+            os.remove(path)
+        t0 = time.perf_counter()
+        native.build_library()
+        return (f"build: native/srgan_io.cc -> "
+                f"{os.path.relpath(path, REPO)} (g++) in "
+                f"{time.perf_counter() - t0:.2f} s")
+
     names = ("patches", "fused_norm", "density", "copy")
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as pool:
+        native_line = pool.submit(build_native)
         for line in pool.map(build, names):
             log(line)
+        log(native_line.result())
 
     # 2. kernels at the shapes of their paths
     entries = ([check_kernels(dev), check_rescale_kernel(dev)]
@@ -1770,6 +2126,10 @@ def main() -> int:
     for impl in ("xla", "pallas"):
         check_small_app_step(dev, "age", impl)
     check_small_app_step(dev, "age", "pallas", dnn_only=True)
+    for impl in ("xla", "pallas"):
+        check_small_step(dev, impl, crowd_label_type="iknn")
+    for model in ("jointdcnn", "pyramid"):
+        check_small_step(dev, "pallas", crowd_model=model)
 
     # 5. the training paths through their entry point; 6. timed steps
     logs = os.path.join(REPO, "logs", "chip_smoke")
@@ -1806,6 +2166,20 @@ def main() -> int:
                       logs_directory=app_logs)
         app_train_main_path(app, Settings(**dict(kw, **over)), dev, smi)
     age_cli_main_path(dev, os.path.join(app_logs, "cli"))
+
+    # 12. the rest of the crowd app: kNN/iKNN targets, the other two
+    # models, the window and host tiers; their command line
+    tiers = {}
+    for name, over in CROWD_TIER_RUNS:
+        settings = Settings(**dict(
+            FLAGSHIP, logs_directory=os.path.join(logs, "tiers"),
+            trial_name=f"chip_smoke_{name}", norm_impl="pallas",
+            steps_to_run=STEPS, summary_step_period=1,
+            validation_step_period=VALIDATION_PERIOD, **over))
+        tiers[name] = tier_train_main_path(name, settings, dev, smi)
+    log("tiers: " + json.dumps(tiers))
+    aux_cli_main_path(dev, os.path.join(logs, "database", "raw"),
+                      os.path.join(logs, "aux_cli"))
 
     for entry in entries[:-1]:
         entry["launches"] = launches[entry["name"]]

@@ -1,15 +1,26 @@
-"""Crowd counting: SR-GAN over random patches of a device-resident
-database.
+"""Crowd counting: SR-GAN over random patches of a crowd database.
 
-The port of ``srgan_tpu.apps.crowd.CrowdExperiment`` on its resident
-single-device path. The whole training split lives on the device (images
-as uint8); every step draws random (index, offset, flip[, scale]) draws on
-the host, with the same NumPy stream as the JAX package, and the patch
-kernels (``srgan_tpu_torch/ops/patches.py``) cut the normalized image and
-density patches on the device: fixed P×P windows, or with
-``crowd_rescale_factors`` windows of ``round(P · factor)`` resized to P×P.
-Image and density patches share windows and flips, so augmentation stays
-label-consistent.
+The port of ``srgan_tpu.apps.crowd.CrowdExperiment`` on one device, with
+its three input tiers:
+
+* resident (the default): the whole training split lives on the device
+  (images as uint8); every step draws random (index, offset, flip[,
+  scale]) draws on the host, with the same NumPy stream as the JAX
+  package, and the patch kernels (``srgan_tpu_torch/ops/patches.py``)
+  cut the normalized image and label patches on the device: fixed P×P
+  windows, or with ``crowd_rescale_factors`` windows of
+  ``round(P · factor)`` resized to P×P;
+* the window tier (``crowd_hbm_window``): a split larger than the window
+  keeps a rotating window of it on the device (``data/window.py``), and
+  the same kernels sample the window;
+* the host tier (``crowd_host_pipeline``): the native C++ prefetcher
+  (``io/native.py``) gathers uint8 crops on the host's threads; they are
+  copied pinned and non-blocking and normalized on the device.
+
+Image and label patches share windows and flips, so augmentation stays
+label-consistent. The label tensor is the density map ``[N, H, W, 1]``,
+or with a kNN/iKNN target (``crowd_label_type``) ``[N, H, W, 2]``:
+density for the counts, the aux map as the map head's target.
 
 Evaluation cuts every validation image into a 50%-overlap grid of patches
 (the patch kernel), runs D or the DNN on them, and reassembles the
@@ -17,15 +28,17 @@ overlap-averaged density canvas, whose sum is the image's count.
 Validation writes MAE/RMSE/NVE/NAE for both models, G samples and
 (input | truth | prediction) density triptychs.
 
-Not ported yet: the host and window tiers, dataset sharding, training on
-kNN/iKNN targets and the deeper crowd models.
+The model is ``CROWD_MODELS[crowd_model]``: JointCNN, JointDCNN or
+SpatialPyramidCNN. Not ported yet: dataset sharding.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 import os
-from typing import Dict, Optional, Tuple
+import warnings
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,15 +46,18 @@ from torch import nn
 
 from srgan_tpu_torch import metrics
 from srgan_tpu_torch.apps.common import write_generated_sample_grid
+from srgan_tpu_torch.data.core import prefetch_to_device
 from srgan_tpu_torch.data.crowd import CrowdDatabase, synthetic_crowd_database
+from srgan_tpu_torch.data.window import HBMWindow
 from srgan_tpu_torch.experiment import Experiment
-from srgan_tpu_torch.models.crowd import CrowdDCGenerator, JointCNN
+from srgan_tpu_torch.models.crowd import (CROWD_MODELS, CrowdDCGenerator,
+                                          SpatialPyramidCNN)
 from srgan_tpu_torch.ops.patches import (extract_patches,
                                          extract_rescaled_patches)
 from srgan_tpu_torch.train import ModelBundle
 from srgan_tpu_torch.utils.seeding import generator_for
 
-DENSITY_DOWNSAMPLE = 4  # JointCNN heads emit 1/4-resolution maps
+DENSITY_DOWNSAMPLE = 4  # the crowd models' heads emit 1/4-resolution maps
 
 
 def sum_pool(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -78,6 +94,8 @@ class CrowdExperiment(Experiment):
         self._device_data = None
         self._labeled_index_bound = 0
         self._unlabeled_index_bound = 0
+        self._windows: List[HBMWindow] = []
+        self._host_io: list = []  # the host tier's readers and prefetchers
         # Grid evaluators by _grid_fn_key, built at first use.
         self._grid_count_fns: Dict[tuple, object] = {}
 
@@ -109,14 +127,28 @@ class CrowdExperiment(Experiment):
                      seed=settings.seed + 2),
                 make(settings.test_dataset_size, seed=settings.seed + 3))
 
+    @property
+    def uses_aux_target(self) -> bool:
+        return self.settings.crowd_label_type != "density"
+
     def dataset_setup(self) -> None:
         label_type = self.settings.crowd_label_type
-        if label_type != "density":
-            raise NotImplementedError(
-                f"crowd_label_type={label_type!r}: kNN/iKNN targets are "
-                f"not ported yet; use 'density'")
+        if label_type not in ("density", "knn", "iknn"):
+            raise ValueError(f"unknown crowd_label_type {label_type!r}; "
+                             f"choose density, knn or iknn")
         (self.labeled_db, self.unlabeled_db, self.validation_db,
          self.test_db) = self._load_databases()
+        if self.uses_aux_target:
+            if self.labeled_db.aux_maps is None:
+                raise ValueError(
+                    f"crowd_label_type={label_type!r} needs a database "
+                    f"preprocessed with the matching --label-type "
+                    f"(aux_maps missing)")
+            if self.labeled_db.label_type != label_type:
+                raise ValueError(
+                    f"crowd_label_type={label_type!r} but the database "
+                    f"was preprocessed with "
+                    f"--label-type {self.labeled_db.label_type!r}")
         self.labeled_dataset = self.labeled_db
         self.unlabeled_dataset = self.unlabeled_db
         # test() and the command line dispatch on these; evaluate() takes
@@ -134,41 +166,306 @@ class CrowdExperiment(Experiment):
                              f"choose float32 or bfloat16")
         return getattr(torch, name)
 
+    def _stacked_labels(self) -> np.ndarray:
+        """Label tensor: [N,H,W,1] density, or [N,H,W,2] (density, aux)."""
+        if self.uses_aux_target:
+            return np.stack([self.labeled_db.density_maps,
+                             self.labeled_db.aux_maps], axis=-1)
+        return self.labeled_db.density_maps[..., None]
+
+    def _check_hbm_budget(self) -> None:
+        """Warn, before an opaque device OOM, when the training splits
+        take more than 60% of the device's memory, naming the escape
+        hatches in order of cost. The limit is the card's memory
+        (``total_memory``); on another device, ``device_hbm_gb``."""
+        # Sizes computed arithmetically: the stacked labels would be a
+        # full host copy on exactly the multi-GB path this serves.
+        label_itemsize = self._label_dtype.itemsize
+        dens = self.labeled_db.density_maps
+        label_bytes = (dens.nbytes // dens.itemsize) * label_itemsize
+        if self.uses_aux_target:
+            aux = self.labeled_db.aux_maps
+            label_bytes += (aux.nbytes // aux.itemsize) * label_itemsize
+        # Window tier: only each split's window is resident, plus the one
+        # staged slice in flight (window / slices rows).
+        lab_window = self._window_size_for(self.labeled_db)
+        unl_window = self._window_size_for(self.unlabeled_db)
+        slices = self.settings.crowd_window_slices
+        resident = lambda win: win * (1.0 + 1.0 / slices)
+        lab_frac = ((resident(lab_window) / len(self.labeled_db))
+                    if lab_window else 1.0)
+        unl_frac = ((resident(unl_window) / len(self.unlabeled_db))
+                    if unl_window else 1.0)
+        db_bytes = (int(self.labeled_db.images.nbytes * lab_frac)
+                    + int(label_bytes * lab_frac)
+                    + int(self.unlabeled_db.images.nbytes * unl_frac)
+                    + self.validation_db.images.nbytes)
+        if self.device.type == "cuda":
+            limit = torch.cuda.get_device_properties(
+                self.device).total_memory
+            assumed = ""
+        else:
+            limit = int(self.settings.device_hbm_gb * 1e9)
+            assumed = (f" (assumed capacity device_hbm_gb="
+                       f"{self.settings.device_hbm_gb:g} GB on the "
+                       f"{self.device.type} device)")
+        if db_bytes > 0.6 * limit:
+            hatches = []
+            if self._label_dtype == torch.float32:
+                hatches.append("crowd_label_dtype='bfloat16' (halves "
+                               "the label maps, full speed)")
+            if not self.settings.crowd_hbm_window:
+                hatches.append("crowd_hbm_window=<N> (rotating resident "
+                               "window: full-speed sampling, dataset "
+                               "streams through device memory "
+                               "asynchronously)")
+            hatches.append("crowd_shard_dataset=True (capacity scales "
+                           "with the number of devices)")
+            hatches.append("crowd_host_pipeline=True (native host "
+                           "streaming)")
+            warnings.warn(
+                f"crowd database needs {db_bytes / 1e9:.1f} GB of the "
+                f"{limit / 1e9:.1f} GB of device memory{assumed}; "
+                f"consider " + ", ".join(hatches), stacklevel=3)
+
+    def _window_size_for(self, db: CrowdDatabase) -> int:
+        """Resident window size for a training split: 0 = fully resident
+        (window tier off, or the split already fits)."""
+        win = self.settings.crowd_hbm_window
+        if win and self.settings.crowd_window_slices < 1:
+            raise ValueError(
+                f"crowd_window_slices="
+                f"{self.settings.crowd_window_slices} must be a positive "
+                f"slice count when crowd_hbm_window is set")
+        if win and len(db) > win:
+            return win
+        return 0
+
+    def _labels_source(self, db: CrowdDatabase):
+        """Per-slice stacked-label assembly for the window tier, never the
+        full [N,H,W,C] stack; the bfloat16 cast goes through torch."""
+        aux = self.uses_aux_target
+        dtype = self._label_dtype
+
+        def source(ids: np.ndarray) -> torch.Tensor:
+            dens = db.density_maps[ids]
+            stacked = (np.stack([dens, db.aux_maps[ids]], axis=-1) if aux
+                       else dens[..., None])
+            return torch.from_numpy(
+                stacked.astype(np.float32, copy=False)).to(dtype)
+
+        return source
+
+    def _build_window(self, names, sources, num_examples: int,
+                      window: int, stream: int) -> HBMWindow:
+        settings = self.settings
+        # [seed, stream, start] as the other data streams: distinct
+        # streams for the labeled and unlabeled windows (equal-sized
+        # splits would rotate in lockstep), a fresh order on resume.
+        return HBMWindow(
+            names, sources, num_examples, window,
+            settings.crowd_window_slices,
+            seed=[settings.seed, stream, self._start_step],
+            device=self.device,
+            refresh_period=settings.crowd_window_refresh_period)
+
+    def _refresh_windows(self, step: int) -> None:
+        for w in self._windows:
+            if w.maybe_refresh(step):
+                self._device_data.update(w.arrays)
+
+    def _close_inputs(self) -> None:
+        """Stop the window stagers and the host tier's prefetchers (the
+        windows stay readable: ``resident_ids``, ``refresh_count``)."""
+        for w in self._windows:
+            w.close()
+        for io in self._host_io:
+            io.close()
+
+    def close(self) -> None:
+        try:
+            self._close_inputs()
+        finally:
+            super().close()
+
     def _upload_databases(self) -> None:
         """Place the splits on the device once: images as uint8 (raw
-        0..255), density labels [N, H, W, 1] in ``_label_dtype``, and the
-        validation images for grid evaluation. An evaluation-only run
-        places the validation images alone."""
+        0..255), labels [N, H, W, 1|2] in ``_label_dtype``, and the
+        validation images for grid evaluation.
+
+        An evaluation-only run places the validation images alone; the
+        host tier keeps the training splits on the host; the window tier
+        keeps a rotating window of any split larger than
+        ``crowd_hbm_window`` (the samplers' index bound is then the
+        window)."""
+        settings = self.settings
         device = self.device
-        self._labeled_index_bound = len(self.labeled_db)
-        self._unlabeled_index_bound = len(self.unlabeled_db)
+        self._close_inputs()  # a rebuild must not leak stager threads
+        self._windows, self._host_io = [], []
         self._device_data = {"validation_images": torch.from_numpy(
             self.validation_db.images).to(device)}
-        if self._evaluation_only:
+        if settings.crowd_host_pipeline:
+            if settings.crowd_hbm_window:
+                raise ValueError(
+                    "crowd_hbm_window and crowd_host_pipeline are "
+                    "mutually exclusive tiers; the window tier replaces "
+                    "host streaming for larger-than-memory databases")
+            _ = self._label_dtype  # validated before any export
             return
-        labels = torch.from_numpy(self.labeled_db.density_maps[..., None])
-        self._device_data.update({
-            "labeled_images": torch.from_numpy(
-                self.labeled_db.images).to(device),
-            "labeled_density": labels.to(device).to(self._label_dtype),
-            "unlabeled_images": torch.from_numpy(
-                self.unlabeled_db.images).to(device),
-        })
+        if self._evaluation_only:
+            self._labeled_index_bound = len(self.labeled_db)
+            self._unlabeled_index_bound = len(self.unlabeled_db)
+            return
+        self._check_hbm_budget()
+        lab_window = self._window_size_for(self.labeled_db)
+        unl_window = self._window_size_for(self.unlabeled_db)
+        self._labeled_index_bound = lab_window or len(self.labeled_db)
+        self._unlabeled_index_bound = unl_window or len(self.unlabeled_db)
+        if lab_window:
+            window = self._build_window(
+                ["labeled_images", "labeled_density"],
+                [lambda ids, a=self.labeled_db.images:
+                 torch.from_numpy(a[ids]),
+                 self._labels_source(self.labeled_db)],
+                len(self.labeled_db), lab_window, stream=7)
+            self._windows.append(window)
+            self._device_data.update(window.arrays)
+        else:
+            labels = torch.from_numpy(self._stacked_labels())
+            self._device_data.update({
+                "labeled_images": torch.from_numpy(
+                    self.labeled_db.images).to(device),
+                "labeled_density": labels.to(device).to(self._label_dtype),
+            })
+        if unl_window:
+            window = self._build_window(
+                ["unlabeled_images"],
+                [lambda ids, a=self.unlabeled_db.images:
+                 torch.from_numpy(a[ids])],
+                len(self.unlabeled_db), unl_window, stream=8)
+            self._windows.append(window)
+            self._device_data.update(window.arrays)
+        else:
+            self._device_data["unlabeled_images"] = torch.from_numpy(
+                self.unlabeled_db.images).to(device)
+
+    def _prepare_host_pipeline(self) -> None:
+        """Export the training splits as .npy and start the native
+        readers and prefetchers (``native/srgan_io.cc``).
+
+        The exports live in a ``native_cache`` beside the database
+        (reused across runs: the host tier exists for large splits), or
+        for synthetic data in a temporary directory removed at exit. The
+        label export is keyed by label type."""
+        from srgan_tpu_torch.io.native import (NativeDatasetReader,
+                                               NativePrefetcher)
+
+        warnings.warn(
+            "crowd_host_pipeline streams batches from the host: the "
+            "native gather runs on the host's threads and the step waits "
+            "for it, well below the device-resident path's rate. Prefer "
+            "the resident path or crowd_hbm_window (a rotating window "
+            "sampled at full speed); use the host tier only for "
+            "databases that even a window cannot serve.", stacklevel=2)
+        settings = self.settings
+        if settings.crowd_database_path:
+            cache = os.path.join(settings.crowd_database_path,
+                                 "native_cache")
+            os.makedirs(cache, exist_ok=True)
+        else:
+            import atexit
+            import shutil
+            import tempfile
+            cache = tempfile.mkdtemp(prefix="srgan_native_")
+            atexit.register(shutil.rmtree, cache, ignore_errors=True)
+        paths = {
+            "labeled": os.path.join(cache, "labeled.npy"),
+            "density": os.path.join(
+                cache, f"labels_{settings.crowd_label_type}.npy"),
+            "unlabeled": os.path.join(cache, "unlabeled.npy"),
+        }
+
+        def export(path, make_array):
+            if not os.path.exists(path):  # else cached by an earlier run
+                np.save(path, make_array())
+
+        export(paths["labeled"], lambda: self.labeled_db.images)
+        export(paths["density"], lambda: self._stacked_labels().astype(
+            np.float32, copy=False))
+        export(paths["unlabeled"], lambda: self.unlabeled_db.images)
+        labeled_reader = NativeDatasetReader(paths["labeled"])
+        self._density_reader = NativeDatasetReader(paths["density"])
+        unlabeled_reader = NativeDatasetReader(paths["unlabeled"])
+        # 2·start keeps the two streams' seeds disjoint (11 + 2k odd,
+        # 12 + 2k even) and gives a resumed run fresh orders. Image crops
+        # travel as raw uint8 and are normalized on the device.
+        threads = max(1, settings.number_of_data_workers)
+        self._labeled_prefetcher = NativePrefetcher(
+            labeled_reader, settings.batch_size, settings.image_patch_size,
+            output_dtype="uint8", num_threads=threads,
+            seed=settings.seed + 11 + 2 * self._start_step)
+        self._unlabeled_prefetcher = NativePrefetcher(
+            unlabeled_reader, settings.batch_size,
+            settings.image_patch_size, output_dtype="uint8",
+            num_threads=threads,
+            seed=settings.seed + 12 + 2 * self._start_step)
+        # Prefetchers first: their threads read the readers' maps.
+        self._host_io = [self._labeled_prefetcher,
+                         self._unlabeled_prefetcher, labeled_reader,
+                         self._density_reader, unlabeled_reader]
+
+    def _wrap_host_train_step(self) -> None:
+        """The host tier's step: the uint8 crops are normalized and the
+        float32 labels rounded to ``crowd_label_dtype`` on the device,
+        then the step runs as on the resident path."""
+        raw = self._train_step
+        label_dtype = self._label_dtype
+
+        def norm(u8):
+            return (u8.float() * (2.0 / 255.0) - 1.0).permute(0, 3, 1, 2)
+
+        def labels_of(labels):
+            return labels.to(label_dtype).float()
+
+        if self.settings.dnn_only:
+            def host_step(state, patches_u8, labels):
+                return raw(state, norm(patches_u8), labels_of(labels))
+        else:
+            def host_step(state, patches_u8, labels, upatches_u8,
+                          *args, **kwargs):
+                return raw(state, norm(patches_u8), labels_of(labels),
+                           norm(upatches_u8), *args, **kwargs)
+
+        self._train_step = host_step
 
     # -------------------------------------------------------------- models
     def model_setup(self) -> ModelBundle:
         settings = self.settings
         dtype = getattr(torch, settings.compute_dtype)
         w = settings.model_base_width
+        try:
+            model_cls = CROWD_MODELS[settings.crowd_model]
+        except KeyError:
+            raise ValueError(
+                f"unknown crowd_model {settings.crowd_model!r}; choose "
+                f"from {sorted(CROWD_MODELS)}") from None
+        if model_cls is SpatialPyramidCNN:  # its levels follow the map
+            model_cls = functools.partial(
+                model_cls, image_size=settings.image_patch_size)
         # Dataset-mean per-cell head biases: with zero-init kernels the
         # step-0 prediction is the dataset-mean map and count. The density
-        # head regresses sum_pool(density, 4), i.e. 16 × the mean pixel.
+        # head regresses sum_pool(density, 4), i.e. 16 × the mean pixel,
+        # or in aux mode the mean-pooled aux map, i.e. its mean.
         if settings.zero_init_heads:
             cell = DENSITY_DOWNSAMPLE ** 2
+            loaded = self.labeled_db is not None
             mean_px = (float(np.mean(self.labeled_db.density_maps))
-                       if self.labeled_db is not None else 0.0)
+                       if loaded else 0.0)
+            density_bias = (float(np.mean(self.labeled_db.aux_maps))
+                            if self.uses_aux_target and loaded
+                            else mean_px * cell)
             head_init = dict(zero_init_heads=True,
-                             density_head_bias=mean_px * cell,
+                             density_head_bias=density_bias,
                              count_head_bias=mean_px * cell)
         else:
             head_init = dict(zero_init_heads=False)
@@ -176,13 +473,13 @@ class CrowdExperiment(Experiment):
         # every device.
         rng = generator_for(settings.seed, "init")
         impl = settings.norm_impl
-        d = JointCNN(w, dtype=dtype, norm_impl=impl, rng=rng, **head_init)
+        d = model_cls(w, dtype=dtype, norm_impl=impl, rng=rng, **head_init)
         g = CrowdDCGenerator(image_size=settings.image_patch_size,
                              base_width=w,
                              latent_dimension=settings.latent_dimension,
                              dtype=dtype, norm_impl=impl, rng=rng)
-        dnn = JointCNN(w, dtype=dtype, norm_impl=impl,
-                       use_norm=settings.dnn_use_norm, rng=rng, **head_init)
+        dnn = model_cls(w, dtype=dtype, norm_impl=impl,
+                        use_norm=settings.dnn_use_norm, rng=rng, **head_init)
         transform = self._input_normalization_transform()
         if transform is not None:
             d, dnn = InputAffine(d, *transform), InputAffine(dnn, *transform)
@@ -212,14 +509,24 @@ class CrowdExperiment(Experiment):
     # --------------------------------------------------------------- loss
     def labeled_loss_fn(self):
         """Joint density-map + count loss. predictions: (density_map,
-        count_map), each [B, P/4, P/4]; labels: density patches [B, P, P]."""
+        count_map), each [B, P/4, P/4]; labels: density patches [B, P, P],
+        or [B, P, P, 2] (density, aux) with a kNN/iKNN target, whose map
+        head regresses the mean-pooled aux map (value-like, not
+        mass-like) while the counts come from the density channel."""
         settings = self.settings
+        aux_mode = self.uses_aux_target
 
         def loss_fn(predictions, labels):
             density_map, count_map = predictions
-            map_target = sum_pool(labels, DENSITY_DOWNSAMPLE)
+            if aux_mode:
+                density_ch = labels[..., 0]
+                map_target = (sum_pool(labels[..., 1], DENSITY_DOWNSAMPLE)
+                              / DENSITY_DOWNSAMPLE ** 2)
+            else:
+                density_ch = labels
+                map_target = sum_pool(labels, DENSITY_DOWNSAMPLE)
             map_loss = (density_map - map_target).square().mean()
-            true_count = labels.sum(dim=(1, 2))
+            true_count = density_ch.sum(dim=(1, 2))
             pred_count = count_map.sum(dim=(1, 2))
             count_loss = (pred_count - true_count).square().mean()
             return (map_loss * settings.density_loss_multiplier
@@ -238,11 +545,22 @@ class CrowdExperiment(Experiment):
     def prepare_train_step(self) -> None:
         super().prepare_train_step()
         self._upload_databases()
+        if self.settings.crowd_host_pipeline and not self._evaluation_only:
+            self._prepare_host_pipeline()
+            self._wrap_host_train_step()
         p = self.settings.image_patch_size
         windows = self._rescale_windows
-        # (kNN/iKNN labels and the host tier, which the JAX package also
-        # refuses here, are refused earlier: dataset_setup, check_supported.)
         if windows:
+            if self.uses_aux_target:
+                raise ValueError(
+                    "crowd_rescale_factors requires crowd_label_type="
+                    "'density' — kNN/iKNN distance targets are not "
+                    "scale-covariant under patch resize")
+            if self.settings.crowd_host_pipeline:
+                raise ValueError(
+                    "crowd_rescale_factors is not supported with "
+                    "crowd_host_pipeline (the native prefetcher samples "
+                    "fixed-size patches); use the device-resident path")
             if min(windows) < 1:
                 raise ValueError(
                     f"crowd_rescale_factors produce degenerate windows "
@@ -270,10 +588,10 @@ class CrowdExperiment(Experiment):
     def _sample_batch(self, labeled_images, labeled_density,
                       unlabeled_images, idx, offs, flips, sidx, uidx, uoffs,
                       uflips, usidx):
-        """Three patch-kernel calls: labeled images and their density
-        labels (same windows; with rescale, mass-preserving), and
-        unlabeled images. Returns NCHW image patches (channels_last
-        memory) and [B, P, P] labels."""
+        """Three patch-kernel calls: labeled images and their labels
+        (same windows; with rescale, mass-preserving), and unlabeled
+        images. Returns NCHW image patches (channels_last memory) and
+        [B, P, P] density labels, or [B, P, P, 2] with an aux target."""
         p = self.settings.image_patch_size
         windows = self._rescale_windows
         idx, offs, flips, sidx, uidx, uoffs, uflips, usidx = self._to_device(
@@ -298,7 +616,9 @@ class CrowdExperiment(Experiment):
                                      patch_size=p, indices=idx)
             upatches = extract_patches(unlabeled_images, uoffs, uflips,
                                        indices=uidx, **image)
-        return (patches.permute(0, 3, 1, 2), labels[..., 0],
+        if labels.shape[-1] == 1:
+            labels = labels[..., 0]
+        return (patches.permute(0, 3, 1, 2), labels,
                 upatches.permute(0, 3, 1, 2))
 
     def _random_patch_args(self, rng: np.random.Generator, n_images: int,
@@ -336,18 +656,45 @@ class CrowdExperiment(Experiment):
                    + self._random_patch_args(rng, n_unl, uhw, batch))
 
     def epoch_batch_iterators(self):
+        if self.settings.crowd_host_pipeline:
+            yield from self._host_epoch_iterators()
+            return
         data = self._device_data
         args = self._patch_args_stream()
         steps = self.steps_per_epoch()
+        # The window tier's refreshes run on the absolute step clock.
+        step_clock = itertools.count(self._start_step)
 
         def one_epoch():
             for _ in range(steps):
+                self._refresh_windows(next(step_clock))
                 yield self._sample_batch(
                     data["labeled_images"], data["labeled_density"],
                     data["unlabeled_images"], *next(args))
 
         while True:
             yield one_epoch()
+
+    def _host_epoch_iterators(self):
+        """The host tier's batches: the labeled prefetcher's uint8 crops,
+        the label crops gathered with the same (index, offset, flip), and
+        the unlabeled prefetcher's crops, copied two steps ahead."""
+        steps = self.steps_per_epoch()
+        p = self.settings.image_patch_size
+
+        def host_batches():
+            for _ in range(steps):
+                patches, idx, offs, flips = \
+                    self._labeled_prefetcher.next_with_params()
+                labels = self._density_reader.gather_crops(idx, offs,
+                                                           flips, p)
+                if labels.shape[-1] == 1:
+                    labels = labels[..., 0]
+                upatches, _ = self._unlabeled_prefetcher.next()
+                yield patches, labels, upatches
+
+        while True:
+            yield prefetch_to_device(host_batches(), self.device)
 
     # ----------------------------------------------------------- evaluation
     def _grid_offsets(self, image_hw: Tuple[int, int]) -> np.ndarray:
@@ -399,6 +746,9 @@ class CrowdExperiment(Experiment):
             self.device)
         cells = [(int(oy) // f, int(ox) // f) for oy, ox in offsets]
         offsets_full = torch.from_numpy(offsets).to(self.device)
+        # With an aux target the density head regresses the aux map, so
+        # the counts come from the count head.
+        head = 1 if self.uses_aux_target else 0
 
         def counts_fn(model, images, ids, masks):
             k = ids.shape[0]
@@ -408,7 +758,7 @@ class CrowdExperiment(Experiment):
                 images, offs, torch.zeros_like(idx), patch_size=p,
                 scale=2.0 / 255.0, shift=-1.0, indices=idx)
             with torch.inference_mode():
-                maps = model(patches.permute(0, 3, 1, 2))[0][0].float()
+                maps = model(patches.permute(0, 3, 1, 2))[0][head].float()
                 maps = maps.reshape(k, g, pf, pf)
                 canvas = torch.zeros((k, h // f, w // f),
                                      dtype=torch.float32, device=self.device)

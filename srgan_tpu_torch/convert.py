@@ -74,25 +74,34 @@ def _norms(tree: Mapping, count: int) -> StateDict:
     return out
 
 
+def _conv(out: StateDict, prefix: str, leaf: Mapping) -> None:
+    out[f"{prefix}.weight"] = conv_weight(leaf["kernel"])
+    out[f"{prefix}.bias"] = _tensor(leaf["bias"])
+
+
 def _dense(out: StateDict, prefix: str, leaf: Mapping) -> None:
     out[f"{prefix}.weight"] = dense_weight(leaf["kernel"])
     out[f"{prefix}.bias"] = _tensor(leaf["bias"])
 
 
 def joint_cnn_state_dict(params: Mapping) -> StateDict:
-    """flax ``JointCNN`` → ``srgan_tpu_torch.models.crowd.JointCNN``
-    (with or without norms)."""
+    """flax ``JointCNN``, ``JointDCNN`` or ``SpatialPyramidCNN`` → the
+    port's model of the same name (``srgan_tpu_torch.models.crowd``),
+    with or without norms: ``Conv_i`` → ``convs.i``, the norms →
+    ``norms.i``, ``pyramid_<level>`` → ``pyramid.<level>``, and the two
+    heads by name."""
     tree = _tree(params)
     out: StateDict = {}
-    for i in range(4):
-        leaf = tree[f"Conv_{i}"]
-        out[f"convs.{i}.weight"] = conv_weight(leaf["kernel"])
-        out[f"convs.{i}.bias"] = _tensor(leaf["bias"])
+    count = sum(1 for name in tree if name.startswith("Conv_"))
+    for i in range(count):
+        _conv(out, f"convs.{i}", tree[f"Conv_{i}"])
     if _has_norms(tree):
-        out.update(_norms(tree, 4))
+        out.update(_norms(tree, count))
+    for name in tree:
+        if name.startswith("pyramid_"):
+            _conv(out, f"pyramid.{name.split('_', 1)[1]}", tree[name])
     for head in ("density_head", "count_head"):
-        out[f"{head}.weight"] = conv_weight(tree[head]["kernel"])
-        out[f"{head}.bias"] = _tensor(tree[head]["bias"])
+        _conv(out, head, tree[head])
     return out
 
 
@@ -130,9 +139,7 @@ def conv_regressor_state_dict(params: Mapping) -> StateDict:
     out: StateDict = {}
     count = sum(1 for name in tree if name.startswith("Conv_"))
     for i in range(count):
-        leaf = tree[f"Conv_{i}"]
-        out[f"convs.{i}.weight"] = conv_weight(leaf["kernel"])
-        out[f"convs.{i}.bias"] = _tensor(leaf["bias"])
+        _conv(out, f"convs.{i}", tree[f"Conv_{i}"])
     out.update(_norms(tree, count))
     _dense(out, "dense", tree["Dense_0"])
     _dense(out, "head", tree["Dense_1"])

@@ -733,23 +733,30 @@ def main(argv=None) -> int:
 def synthetic_crowd_database(count: int, height: int = 96, width: int = 128,
                              max_heads: int = 64, sigma: float = 4.0,
                              seed: int = 0,
-                             label_type: str = "density") -> CrowdDatabase:
+                             label_type: str = "density",
+                             knn_k: int = 1) -> CrowdDatabase:
     """Procedural crowd-like data with real signal: each head renders a
     bright blob into the image, so density and count are learnable from
-    pixels. Draws the same numbers as the JAX package's generator."""
-    if label_type != "density":
-        raise NotImplementedError(
-            f"label_type {label_type!r}: the kNN/iKNN maps are not "
-            f"ported yet; use 'density'")
+    pixels. Draws the same numbers as the JAX package's generator.
+    ``label_type`` 'knn'/'iknn' also fills ``aux_maps``."""
+    if label_type not in ("density", "knn", "iknn"):
+        raise ValueError(f"unknown label_type {label_type!r}; "
+                         f"choose density, knn or iknn")
     rng = np.random.default_rng(seed)
     images = np.zeros((count, height, width, 3), np.float32)
     densities = np.zeros((count, height, width), np.float32)
+    aux = (np.zeros((count, height, width), np.float32)
+           if label_type != "density" else None)
     counts = np.zeros((count,), np.float32)
     yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
     for i in range(count):
         n = int(rng.integers(0, max_heads + 1))
         heads = np.stack([rng.uniform(0, height, n),
                           rng.uniform(0, width, n)], axis=-1)
+        if label_type == "knn":
+            aux[i] = generate_knn_map(heads, height, width, knn_k)
+        elif label_type == "iknn":
+            aux[i] = generate_iknn_map(heads, height, width, knn_k)
         blob = np.zeros((height, width), np.float32)
         for hy, hx in heads:
             blob += np.exp(-((yy - hy) ** 2 + (xx - hx) ** 2)
@@ -762,7 +769,7 @@ def synthetic_crowd_database(count: int, height: int = 96, width: int = 128,
         counts[i] = float(n)
     return CrowdDatabase(images=images.astype(np.uint8),
                          density_maps=densities, head_counts=counts,
-                         label_type=label_type)
+                         aux_maps=aux, label_type=label_type)
 
 
 if __name__ == "__main__":

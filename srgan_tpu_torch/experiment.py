@@ -16,10 +16,9 @@ rather than train on the CPU unasked.
 ``profile_step_range`` traces steps ``[start, end)`` with
 ``torch.profiler`` into ``<trial>/profile/``; ``debug_nans`` turns on
 autograd's anomaly mode for ``train()`` and checks every step's metrics.
-Not ported yet (``ROADMAP.md``): the mesh, and the crowd app's host and
-window tiers, dataset sharding, kNN targets and deeper models. A setting
-that asks for one of them raises ``NotImplementedError``
-(:func:`check_supported`).
+Not ported yet (``ROADMAP.md``): the mesh, the crowd app's dataset
+sharding and the K-step dispatch. A setting that asks for one of them
+raises ``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -50,11 +49,7 @@ from srgan_tpu_torch.utils.summary import SummaryWriter, make_trial_directory
 _UNPORTED = {
     "steps_per_dispatch": 1,
     "model_parallel_devices": 1,
-    "crowd_host_pipeline": False,
-    "crowd_hbm_window": 0,
     "crowd_shard_dataset": False,
-    "crowd_label_type": "density",
-    "crowd_model": "jointcnn",
 }
 
 

@@ -1,13 +1,15 @@
-"""Crowd-counting models: the two-head JointCNN and the patch generator.
+"""Crowd-counting models: the two-head crowd networks and the patch
+generator.
 
-The port of ``srgan_tpu.models.crowd`` (``JointCNN`` and
-``CrowdDCGenerator``). ``JointDCNN`` and ``SpatialPyramidCNN`` are not
-ported yet.
+The port of ``srgan_tpu.models.crowd``: ``JointCNN``, ``JointDCNN``,
+``SpatialPyramidCNN``, ``CROWD_MODELS`` and ``CrowdDCGenerator``. Every
+crowd network maps an image patch to a (density map, count map) pair at
+1/4 resolution and globally pooled trunk features.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -15,15 +17,6 @@ from torch import nn
 
 from srgan_tpu_torch.models.dcgan import (Conv, DCGANGenerator, group_norm,
                                           norm_act)
-
-
-def _conv_stage(x: torch.Tensor, conv: Conv, norm: nn.Module | None
-                ) -> torch.Tensor:
-    """One crowd-model stage: 3×3 conv [+ GroupNorm] + LeakyReLU(0.2)."""
-    x = conv(x)
-    if norm is not None:
-        return norm_act(x, norm, negative_slope=0.2)
-    return F.leaky_relu(x, 0.2)
 
 
 def _joint_heads(head_input: torch.Tensor, trunk: torch.Tensor,
@@ -40,14 +33,19 @@ def _joint_heads(head_input: torch.Tensor, trunk: torch.Tensor,
 class JointCNN(nn.Module):
     """Patch → (density map, count map) + features.
 
-    Input: [B, 3, P, P] float32. The heads emit maps at 1/4 resolution;
-    ``features`` is the globally pooled [B, 4w] trunk.
+    Input: [B, 3, P, P] float32. The trunk's 3×3 conv stages (each
+    [+ GroupNorm] + LeakyReLU(0.2)) take widths ``w, 2w`` at stride 2,
+    then ``TRUNK`` at stride 1, in multiples of the base width; the heads
+    emit maps at 1/4 resolution, and ``features`` is the globally pooled
+    trunk.
 
     ``zero_init_heads`` zero-initializes the head kernels and sets their
     biases to the given per-cell targets, so that the step-0 prediction
     is the dataset-mean map and count. ``norm_impl`` picks the norm layers
     (``models.dcgan.group_norm``).
     """
+
+    TRUNK: Tuple[int, ...] = (4, 4)
 
     def __init__(self, base_width: int = 64, *,
                  dtype: torch.dtype = torch.float32, norm_impl: str = "xla",
@@ -57,29 +55,95 @@ class JointCNN(nn.Module):
                  count_head_bias: float = 0.0, rng: torch.Generator):
         super().__init__()
         w = base_width
-        stages = ((3, w, 2), (w, 2 * w, 2), (2 * w, 4 * w, 1),
-                  (4 * w, 4 * w, 1))
+        widths = [w, 2 * w] + [m * w for m in self.TRUNK]
+        strides = [2, 2] + [1] * len(self.TRUNK)
         self.convs = nn.ModuleList(
             Conv(cin, cout, 3, stride, dtype=dtype, rng=rng)
-            for cin, cout, stride in stages)
+            for cin, cout, stride in zip([3] + widths, widths, strides))
         self.norms = nn.ModuleList(
-            group_norm(cout, dtype, norm_impl) for _, cout, _ in stages
+            group_norm(cout, dtype, norm_impl) for cout in widths
         ) if use_norm else None
-        self.density_head = Conv(4 * w, 1, 1, dtype=dtype, rng=rng,
+        heads_in = self._make_context(widths[-1], dtype=dtype, rng=rng)
+        self.density_head = Conv(heads_in, 1, 1, dtype=dtype, rng=rng,
                                  zero_init=zero_init_heads,
                                  bias_value=density_head_bias)
-        self.count_head = Conv(4 * w, 1, 1, dtype=dtype, rng=rng,
+        self.count_head = Conv(heads_in, 1, 1, dtype=dtype, rng=rng,
                                zero_init=zero_init_heads,
                                bias_value=count_head_bias)
+
+    def _make_context(self, channels: int, *, dtype: torch.dtype,
+                      rng: torch.Generator) -> int:
+        """Make the layers between the trunk of ``channels`` channels and
+        the heads (none here); returns the heads' input channels."""
+        return channels
+
+    def context(self, trunk: torch.Tensor) -> torch.Tensor:
+        """The heads' input from the trunk (the trunk itself here)."""
+        return trunk
 
     def forward(self, patches: torch.Tensor
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
         x = patches
         for i, conv in enumerate(self.convs):
-            x = _conv_stage(x, conv,
-                            self.norms[i] if self.norms is not None
-                            else None)
-        return _joint_heads(x, x, self.density_head, self.count_head)
+            x = conv(x)
+            x = (norm_act(x, self.norms[i], negative_slope=0.2)
+                 if self.norms is not None else F.leaky_relu(x, 0.2))
+        return _joint_heads(self.context(x), x, self.density_head,
+                            self.count_head)
+
+
+class JointDCNN(JointCNN):
+    """The deeper two-head network: JointCNN's contract with a trunk of
+    ``4w, 4w, 4w, 8w`` at 1/4 resolution."""
+
+    TRUNK = (4, 4, 4, 8)
+
+
+class SpatialPyramidCNN(JointCNN):
+    """JointCNN's trunk and spatial-pyramid context before the heads.
+
+    The trunk is average-pooled at each of ``pyramid_levels`` (a level
+    that does not divide the map is skipped), projected to ``c // 3``
+    channels by a 1×1 conv without a norm (``pyramid.<level>``), upsampled
+    back by nearest repetition and concatenated with the trunk. The
+    features stay pooled from the trunk. The skipped levels depend on the
+    map, so the model takes the patch size (``image_size``).
+    """
+
+    def __init__(self, base_width: int = 64, *, image_size: int,
+                 pyramid_levels: Sequence[int] = (1, 2, 4), **kwargs):
+        self.pyramid_levels = tuple(pyramid_levels)
+        side = image_size
+        for _ in range(2):  # the two stride-2 SAME stages
+            side = -(-side // 2)
+        self.levels = tuple(level for level in self.pyramid_levels
+                            if side % level == 0)
+        super().__init__(base_width, **kwargs)
+
+    def _make_context(self, channels: int, *, dtype: torch.dtype,
+                      rng: torch.Generator) -> int:
+        out = channels // len(self.pyramid_levels)
+        self.pyramid = nn.ModuleDict(
+            {str(level): Conv(channels, out, 1, dtype=dtype, rng=rng)
+             for level in self.levels})
+        return channels + len(self.levels) * out
+
+    def context(self, trunk: torch.Tensor) -> torch.Tensor:
+        h, w = trunk.shape[-2:]
+        parts = [trunk]
+        for level in self.levels:
+            pooled = F.avg_pool2d(trunk, (h // level, w // level))
+            proj = self.pyramid[str(level)](pooled)
+            parts.append(proj.repeat_interleave(h // level, dim=2)
+                         .repeat_interleave(w // level, dim=3))
+        return torch.cat(parts, dim=1)
+
+
+CROWD_MODELS = {
+    "jointcnn": JointCNN,
+    "jointdcnn": JointDCNN,
+    "pyramid": SpatialPyramidCNN,
+}
 
 
 class CrowdDCGenerator(DCGANGenerator):

@@ -7,6 +7,8 @@ machine with the card:
 (``--noconftest``: the suite's conftest configures JAX.)
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -69,6 +71,9 @@ PATCH_CASES = [  # (dtype, channels, scale, shift)
     (torch.float32, 1, 1.0, 0.0),
     (torch.bfloat16, 1, 1.0, 0.0),
     (torch.bfloat16, 3, 2.0, -1.0),
+    # The kNN/iKNN label tensor: (density, aux) channels.
+    (torch.float32, 2, 1.0, 0.0),
+    (torch.bfloat16, 2, 1.0, 0.0),
 ]
 
 
@@ -295,12 +300,18 @@ AGE_NORM_CASES = [((b, hw, c), 0.2) for b in (96, 32)
                       (16, 512), (64, 256), (256, 128), (1024, 64))]
 
 
-@pytest.mark.parametrize("shape,slope", AGE_NORM_CASES)
+@pytest.mark.parametrize("shape,slope", AGE_NORM_CASES + [
+    # JointDCNN's last stage: a backward that streams 97 of each block's
+    # 196 rows.
+    ((8, 3136, 512), 0.2)])
 def test_fused_norm_kernels_equal_plain_at_the_age_shapes(shape, slope):
     """bfloat16, the tolerances of chip_smoke.py's flagship check: y and
     dx within one bfloat16 ulp of each element plus 1e-5 of the largest,
     mean and rstd at rtol 1e-5, dscale and dbias within 1e-4 of their
     largest."""
+    if shape == (8, 3136, 512):
+        tiling = fn.norm_tiling(*shape, torch.bfloat16, "bwd")
+        assert tiling.resident_rows < tiling.rows_per_block
     x, scale, bias, dy = _norm_inputs(shape, torch.bfloat16)
     y, mean, rstd = fn._launch_fwd(x, scale, bias, 32, slope, 1e-6)
     dx, dscale, dbias = fn._launch_bwd(x, scale, bias, mean, rstd, dy, 32,
@@ -556,3 +567,48 @@ def test_copy_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="divide"):
         bandwidth.copy(torch.zeros((2, 8, 64), dtype=torch.bfloat16,
                                    device=dev), "batch_strided", 5)
+
+
+def test_window_refresh_on_a_side_stream_keeps_the_samplers_reads():
+    """A deterministic window refreshed between sampler calls: every call
+    reads the rows resident at its step, and the buffer equals the host
+    rows of ``resident_ids`` after each refresh; opportunistic refreshes
+    land once their copies finish."""
+    from srgan_tpu_torch.data.window import HBMWindow
+
+    host = np.random.default_rng(3).integers(0, 256, (40, H, W, 3)).astype(
+        np.uint8)
+    dev = torch.device("cuda")
+    for period in (1, 0):
+        window = HBMWindow(["images"], [lambda ids: torch.from_numpy(
+            host[ids])], len(host), 16, 4, seed=[0, 7, 0], device=dev,
+            refresh_period=period)
+        try:
+            offsets = torch.zeros((16, 2), dtype=torch.int32, device=dev)
+            flips = torch.zeros(16, dtype=torch.int32, device=dev)
+            indices = torch.arange(16, dtype=torch.int32, device=dev)
+            outs, ids = [], []
+            deadline = time.monotonic() + 60.0
+            step = 0
+            # Deterministic: 39 refreshes; opportunistic: until 3 copies
+            # have landed (each step gives the stager a millisecond).
+            while step < 39 if period else window.refresh_count < 3:
+                step += 1
+                window.maybe_refresh(step)
+                outs.append(extract_patches(
+                    window.arrays["images"], offsets, flips, patch_size=P,
+                    indices=indices))
+                ids.append(window.resident_ids())
+                if not period:
+                    assert time.monotonic() < deadline, "never refreshed"
+                    time.sleep(0.001)
+            torch.cuda.synchronize()
+            for out, resident in zip(outs, ids):
+                want = torch.from_numpy(host[resident, :P, :P]).float()
+                torch.testing.assert_close(out.cpu(), want, rtol=0, atol=0)
+            assert window.refresh_count == (39 if period else 3)
+            np.testing.assert_array_equal(
+                window.arrays["images"].cpu().numpy(),
+                host[window.resident_ids()])
+        finally:
+            window.close()
