@@ -109,12 +109,28 @@ Phases, each of which fails the run if it fails:
              time); then phase 7's raw database preprocessed with
              ``--label-type iknn`` and the command line on it with iKNN
              targets, JointDCNN and a window: 4 steps with checkpoints,
-             evaluate-only.
+             evaluate-only;
+13. parallel — data parallelism through the launcher
+             (``srgan_tpu_torch.parallel.launch.run_experiment``, one
+             spawned process a rank, each ``train()`` on its device): (a)
+             a world of 1 over NCCL at phase 5's "pallas" config, 8 steps
+             with validation every 4, then 20 timed steps beside phase
+             6's "pallas" step; (b) a world of 2 over gloo on this card
+             (NCCL refuses two ranks on one device): ``DP_TINY`` in
+             float32 on a sharded odd split, its ranks' models bit-equal,
+             held to one rank fed the same global batches and draws, no
+             cyclic-pad duplicate drawn; then ``DP_WINDOW`` at the
+             flagship widths (batch 120, 60 a rank) with the database and
+             a window sharded and rescale on, 4 steps. Every rank's
+             launches asserted (3 sampler and 30/25 norm launches a step,
+             a validation pass's as in phase 5), rank 0 alone writing;
+             per rank the ms/step, the peak allocated memory and the
+             gradient all-reduce's host ms a step.
 
 Prints the kernel table as one JSON line (each kernel's launches counted
 on the path that runs it: the training kernels in the rescale run of
 phase 5, the density kernel in phase 7, the copy kernel in phase 9;
-phases 4, 10, 11 and 12 count the launches of each run they drive and
+phases 4, 10, 11, 12 and 13 count the launches of each run they drive and
 assert them),
 then the card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": ...}``.
@@ -1214,7 +1230,7 @@ def train_main_path(settings, dev, card: str) -> dict:
     validation every ``VALIDATION_PERIOD`` steps, checked, then further
     steps of the same experiment timed, and one validation pass timed.
     Returns the kernels' launches during ``train()``, by kernel table
-    name."""
+    name, and the timed ms/step."""
     from srgan_tpu_torch import CrowdExperiment
     from srgan_tpu_torch.ops import fused_norm as fn
     from srgan_tpu_torch.ops.patches import (extract_patches,
@@ -1289,7 +1305,7 @@ def train_main_path(settings, dev, card: str) -> dict:
         f"{card}), peak allocated {peak}; one validation pass "
         f"({settings.validation_dataset_size} images, D and DNN, "
         f"triptychs and G samples written) {1e3 * t_val:.1f} ms")
-    return launches
+    return launches, 1e3 * elapsed / TIMED_STEPS
 
 
 def app_train_main_path(app, settings, dev, card: str) -> dict:
@@ -2061,6 +2077,344 @@ def aux_cli_main_path(dev, raw_root: str, root: str) -> None:
     log(f"aux cli evaluate: {json.dumps(evaluated)}")
 
 
+# Phase 13, data parallelism on the one card. A world of 1 runs over
+# NCCL; a world of 2 shares cuda:0 over gloo (NCCL refuses two ranks on
+# one device), its collectives staged through the host, so its times are
+# one card shared by two processes, not a speedup. DP_TINY: float32, an
+# odd split (7 labeled and 5 unlabeled images over 2 ranks: local counts
+# 4 and 3, 3 and 2) sharded; 2 steps, validation at the second. DP_WINDOW:
+# the flagship widths at batch 120 (60 a rank), the database sharded and
+# a window of 32 of 64 images (16 rows a rank, 4 slices, a refresh every
+# 2 steps), rescale on; 4 steps, validation at the fourth.
+DP_JOIN_S = 400
+DP_TINY = dict(TINY, labeled_dataset_size=7, unlabeled_dataset_size=5,
+               validation_dataset_size=3, crowd_shard_dataset=True,
+               data_parallel_devices=2, steps_to_run=2,
+               summary_step_period=1, validation_step_period=2)
+DP_WINDOW = dict(FLAGSHIP, trial_name="chip_smoke_dp", norm_impl="pallas",
+                 crowd_shard_dataset=True, data_parallel_devices=2,
+                 labeled_dataset_size=64, unlabeled_dataset_size=64,
+                 crowd_hbm_window=32, crowd_window_slices=4,
+                 crowd_window_refresh_period=2,
+                 crowd_rescale_factors=RESCALE,
+                 steps_to_run=4, summary_step_period=1,
+                 validation_step_period=4)
+DP_TIMED_STEPS = 3
+DP_DRAWS_CHECKED = 200
+DP_REDUCE_REPEATS = 5
+
+
+def _launch_counters():
+    from srgan_tpu_torch.ops import fused_norm as fn
+    from srgan_tpu_torch.ops.patches import (extract_patches,
+                                             extract_rescaled_patches)
+    return {"extract_patches": extract_patches,
+            "extract_rescaled_patches": extract_rescaled_patches,
+            "group_norm_act_fwd": fn._launch_fwd,
+            "group_norm_act_bwd": fn._launch_bwd}
+
+
+def _gradient_reduce_ms(experiment) -> float:
+    """The host time of one step's three gradient averages (D, G, the
+    DNN: ``average_gradients`` on their last gradients), the card
+    synchronized before and after, the least of ``DP_REDUCE_REPEATS``."""
+    from srgan_tpu_torch.parallel.mesh import average_gradients
+    state = experiment.state
+    grads = [[p.grad for p in opt.params]
+             for opt in (state.d_opt, state.g_opt, state.dnn_opt)]
+    best = math.inf
+    for _ in range(DP_REDUCE_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in grads:
+            average_gradients(g, experiment.data_parallel)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best
+
+
+def dp_train_action(experiment, timed_steps: int) -> dict:
+    """A rank of phase 13: ``train()`` with its launches counted (zeroed
+    just before), a sharded window's buffers checked against the host rows
+    of its ids, then ``timed_steps`` more steps timed (ms/step between
+    synchronizations), the peak allocated memory and the gradient
+    all-reduce's ms a step."""
+    counters = _launch_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state = experiment.train()
+    torch.cuda.synchronize()
+    out = {"launches": {k: c.launches for k, c in counters.items()},
+           "step": state.step}
+    host = {"labeled_images": experiment.labeled_db.images,
+            "labeled_density": experiment._stacked_labels(),
+            "unlabeled_images": experiment.unlabeled_db.images}
+    for window in experiment._windows:
+        for name in window.names:
+            got = experiment._device_data[name].cpu()
+            want = torch.from_numpy(host[name][window.local_ids()])
+            if not torch.equal(got, want.to(got.dtype)):
+                raise AssertionError(f"rank {experiment.data_parallel.rank}"
+                                     f": window {name} differs from the "
+                                     f"host rows of its ids")
+    out["windows"] = [(w.refresh_count, len(w.local_ids()))
+                      for w in experiment._windows]
+    experiment.prepare_train_step()  # train() closed the inputs
+    stream = (b for epoch in experiment.epoch_batch_iterators()
+              for b in epoch)
+    for _ in range(2):
+        experiment.state, _ = experiment._step(*next(stream))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        experiment.state, metrics = experiment._step(*next(stream))
+    torch.cuda.synchronize()
+    out["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / timed_steps
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"timed steps: losses {metrics}")
+    out["reduce_ms"] = _gradient_reduce_ms(experiment)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    experiment.close()
+    return out
+
+
+def dp_tiny_action(experiment) -> dict:
+    """A rank of phase 13's float32 run: ``train()`` with every step's
+    global batch gathered from the ranks and its metrics kept; then the
+    models, and ``DP_DRAWS_CHECKED`` steps of fresh draws checked below
+    the rank's true counts (no cyclic-pad duplicate drawn)."""
+    from srgan_tpu_torch.parallel.mesh import gather_rows
+    dp = experiment.data_parallel
+    step = experiment._step
+    batches, metrics = [], []
+
+    def recording(*batch):
+        batches.append([gather_rows(t.contiguous(), dp).cpu()
+                        for t in batch])
+        experiment.state, m = step(*batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+        return experiment.state, m
+
+    experiment._step = recording
+    state = experiment.train()
+    args = experiment._patch_args_stream()
+    draws = [next(args) for _ in range(DP_DRAWS_CHECKED)]
+    bounds = (int(experiment._labeled_local_counts[dp.rank]),
+              int(experiment._unlabeled_local_counts[dp.rank]))
+    highest = (max(int(d[0].max()) for d in draws),
+               max(int(d[4].max()) for d in draws))
+    if not (highest[0] < bounds[0] and highest[1] < bounds[1]):
+        raise AssertionError(f"rank {dp.rank}: local indices up to "
+                             f"{highest}, true counts {bounds}")
+    experiment.close()
+    return {"batches": batches, "metrics": metrics, "step": state.step,
+            "models": {name: {k: v.detach().cpu() for k, v in
+                              getattr(state, name).state_dict().items()}
+                       for name in ("d", "g", "dnn")},
+            "bounds": bounds, "highest": highest}
+
+
+def _cancelled_biases(module) -> set:
+    """The conv biases of ``module`` right before a GroupNorm of one
+    channel per group (G's ``norms[0]`` follows its dense layer)."""
+    norms = getattr(module, "norms", None)
+    out = set()
+    for kind, shift in (("convs", 0), ("deconvs", 1)):
+        for i, _ in enumerate(getattr(module, kind, ())):
+            j = i + shift
+            if norms is not None and j < len(norms) and \
+                    norms[j].num_groups == norms[j].scale.numel():
+                out.add(f"{kind}.{i}.bias")
+    return out
+
+
+def dp_gloo_action(experiment, window_settings, window_trial: str):
+    """A rank of phase 13 (b), one process for both runs: the float32
+    run (``dp_tiny_action``), then the flagship widths' sharded run
+    (``dp_train_action``) as a second experiment in the same group."""
+    from srgan_tpu_torch import CrowdExperiment
+    tiny = dp_tiny_action(experiment)
+    window = CrowdExperiment(window_settings,
+                             data_parallel=experiment.data_parallel)
+    window.given_trial_directory = window_trial
+    return tiny, dp_train_action(window, DP_TIMED_STEPS)
+
+
+def _written_once(trial_directory: str) -> None:
+    """Rank 0 alone writes: every (tag, step) once in each scalars.jsonl."""
+    for sub in ("GAN", "DNN"):
+        with open(os.path.join(trial_directory, sub, "scalars.jsonl")) as f:
+            keys = [(r["tag"], r["step"]) for r in map(json.loads, f)]
+        if len(keys) != len(set(keys)):
+            raise AssertionError(f"{trial_directory}/{sub}: a scalar "
+                                 f"written twice")
+
+
+def _dp_launches(launches: dict, per_step: dict, steps: int,
+                 validations: int, what: str) -> None:
+    per_validation = LAUNCHES_PER_VALIDATION
+    for name, count in per_step.items():
+        want = count * steps + per_validation[name] * validations
+        if launches[name] != want:
+            raise AssertionError(f"{what}: {name} launched {launches[name]}"
+                                 f" times, not {want}")
+
+
+def dp_main_path(dev, logs: str, card: str, pallas_ms: float) -> dict:
+    """Phase 13: (a) the flagship "pallas" config on a world of 1 over
+    NCCL through the launcher; (b) on a world of 2 over gloo on this card,
+    the float32 run held to one rank on the same global batches and the
+    flagship widths with a sharded database and window. Every rank's
+    launches asserted; a failed rank fails the phase."""
+    from srgan_tpu_torch import CrowdExperiment, Settings
+    from srgan_tpu_torch.parallel.launch import run_experiment
+    from srgan_tpu_torch.train import (init_train_state, make_gan_train_step,
+                                       set_float32_precision)
+    from srgan_tpu_torch.utils.seeding import generator_for
+    from srgan_tpu_torch.utils.summary import make_trial_directory
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+
+    def ranks(settings, devices, action, *args):
+        trial = make_trial_directory(settings)
+        t0 = time.perf_counter()
+        results = run_experiment(CrowdExperiment, settings, devices,
+                                 action=action, action_args=args,
+                                 trial_directory=trial, timeout_s=DP_JOIN_S)
+        return trial, results, time.perf_counter() - t0
+
+    # Both (b) runs in one launch: a rank's start takes seconds.
+    window_settings = Settings(**dict(DP_WINDOW, logs_directory=logs))
+    window_trial = make_trial_directory(window_settings)
+
+    # (a) a world of 1 over NCCL
+    settings = Settings(**dict(
+        FLAGSHIP, logs_directory=logs, trial_name="chip_smoke_nccl1",
+        norm_impl="pallas", data_parallel_devices=1, steps_to_run=STEPS,
+        summary_step_period=1, validation_step_period=VALIDATION_PERIOD))
+    trial, (got,), seconds = ranks(settings, [dev], dp_train_action,
+                                   TIMED_STEPS)
+    per_step = {"extract_patches": 3, "extract_rescaled_patches": 0,
+                "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+    _dp_launches(got["launches"], per_step, STEPS,
+                 STEPS // VALIDATION_PERIOD, "world of 1")
+    check_crowd_trial(trial, STEPS)
+    _written_once(trial)
+    out["nccl_world_1"] = dict(
+        ms_per_step=got["ms_per_step"], pallas_ms_per_step=pallas_ms,
+        ratio=got["ms_per_step"] / pallas_ms, peak_gib=got["peak_gib"],
+        reduce_ms=got["reduce_ms"], launches=got["launches"],
+        seconds=seconds)
+    log(f"data parallel (a), a world of 1 over NCCL: {STEPS} steps through "
+        f"the launcher in {seconds:.1f} s (the rank's start included), "
+        f"launches {json.dumps(got['launches'])}; "
+        f"{got['ms_per_step']:.2f} ms/step ({TIMED_STEPS} steps) against "
+        f"phase 6's \"pallas\" step {pallas_ms:.2f} ms/step "
+        f"({got['ms_per_step'] / pallas_ms:.4f}x), peak allocated "
+        f"{got['peak_gib']:.2f} GiB, gradient all-reduce "
+        f"{got['reduce_ms']:.3f} ms a step ({dev}: {card})")
+
+    # (b) a world of 2 over gloo on this card: float32, held to one rank
+    settings = Settings(**dict(DP_TINY, logs_directory=logs,
+                               trial_name="chip_smoke_gloo2_fp32"))
+    trial, ranks_out, seconds = ranks(settings, [dev, dev], dp_gloo_action,
+                                      window_settings, window_trial)
+    (a, window_a), (b, window_b) = ranks_out
+    for name in ("d", "g", "dnn"):
+        for k, v in a["models"][name].items():
+            if not torch.equal(v, b["models"][name][k]):
+                raise AssertionError(f"world of 2: rank 1's {name} {k} "
+                                     f"differs from rank 0's")
+    if a["metrics"] != b["metrics"]:
+        raise AssertionError("world of 2: the ranks' metrics differ")
+    set_float32_precision()
+    one = CrowdExperiment(settings.copy(data_parallel_devices=1),
+                          device=dev)
+    one.models = one.model_setup()
+    state = init_train_state(one.settings, one.models)
+    step = make_gan_train_step(one.settings,
+                               labeled_loss_fn=one.labeled_loss_fn(),
+                               latent_shape=one.latent_shape())
+    rng = generator_for(settings.seed, "train", dev)
+    worst = 0.0
+    for i, (batch, want) in enumerate(zip(a["batches"], a["metrics"])):
+        x, y, u = (t.to(dev) for t in batch)
+        state, metrics = step(state, x.contiguous(
+            memory_format=torch.channels_last), y, u.contiguous(
+            memory_format=torch.channels_last), rng)
+        for k, v in want.items():
+            got = float(metrics[k])
+            worst = max(worst, abs(got - v) / max(abs(v), 1e-6))
+            if not math.isclose(got, v, rel_tol=2e-4, abs_tol=2e-5):
+                raise AssertionError(f"world of 2, step {i}: {k} {v} on 2 "
+                                     f"ranks, {got} on one")
+    lr, steps = settings.learning_rate, settings.steps_to_run
+    moved = 0.0
+    for name in ("d", "g", "dnn"):
+        module = getattr(state, name)
+        ours = module.state_dict()
+        cancelled = _cancelled_biases(getattr(module, "model", module))
+        for k, v in a["models"][name].items():
+            err = float((ours[k].cpu() - v).abs().max())
+            # A conv bias a one-channel GroupNorm cancels has a
+            # noise-level gradient, whose Adam step of ±lr may take either
+            # sign: it may differ by 2·lr a step.
+            tol = (2 * lr * steps if k in cancelled
+                   else 2e-5 + 2e-4 * float(v.abs().max()))
+            if k not in cancelled:
+                moved = max(moved, err)
+            if err > tol:
+                raise AssertionError(f"world of 2: {name} {k} differs from "
+                                     f"one rank's by {err}")
+    losses = read_scalars(trial)
+    if sorted(s for s, v in losses["GAN"].items()
+              if "d_total_loss" in v) != list(range(steps)):
+        raise AssertionError(
+            f"world of 2: summaries {sorted(losses['GAN'])}")
+    check_validation(trial, [steps])
+    _written_once(trial)
+    log(f"data parallel (b), a world of 2 over gloo on {dev}, float32, "
+        f"sharded odd split: {steps} steps, and the run below, in "
+        f"{seconds:.1f} s (the ranks' start included); ranks' "
+        f"models bit-equal; one rank on the same global batches and "
+        f"draws: metrics within {worst:.2e} (relative), models within "
+        f"{moved:.2e} (cancelled biases aside); local indices of "
+        f"{DP_DRAWS_CHECKED} steps of draws up to "
+        f"{a['highest']}/{b['highest']} below the true counts "
+        f"{a['bounds']}/{b['bounds']}")
+
+    # (b) the flagship widths, sharded database and window, rescale
+    ranks_out = [window_a, window_b]
+    per_step = {"extract_patches": 0, "extract_rescaled_patches": 3,
+                "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+    steps = window_settings.steps_to_run
+    for r, got in enumerate(ranks_out):
+        _dp_launches(got["launches"], per_step, steps, 1, f"rank {r}")
+        if got["windows"] != [(steps // 2 - 1, 16)] * 2:
+            raise AssertionError(f"rank {r}: windows {got['windows']}")
+    check_crowd_trial(window_trial, steps)
+    _written_once(window_trial)
+    out["gloo_world_2"] = dict(
+        ms_per_step=[g["ms_per_step"] for g in ranks_out],
+        peak_gib=[g["peak_gib"] for g in ranks_out],
+        reduce_ms=[g["reduce_ms"] for g in ranks_out],
+        launches=[g["launches"] for g in ranks_out], seconds=seconds)
+    log(f"data parallel (b), a world of 2 over gloo on {dev}, flagship "
+        f"widths, batch 120 (60 a rank), sharded database, window 32 of 64 "
+        f"(16 rows a rank), rescale: {steps} steps; "
+        f"launches a rank {json.dumps(ranks_out[0]['launches'])}; "
+        + "; ".join(f"rank {r}: {g['ms_per_step']:.2f} ms/step "
+                    f"({DP_TIMED_STEPS} steps), peak allocated "
+                    f"{g['peak_gib']:.2f} GiB, gradient all-reduce "
+                    f"{g['reduce_ms']:.2f} ms a step"
+                    for r, g in enumerate(ranks_out)) + f" ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2133,12 +2487,14 @@ def main() -> int:
 
     # 5. the training paths through their entry point; 6. timed steps
     logs = os.path.join(REPO, "logs", "chip_smoke")
+    step_ms = {}
     for impl, factors in (("xla", ()), ("pallas", ()), ("pallas", RESCALE)):
         settings = Settings(
             logs_directory=logs, steps_to_run=STEPS, summary_step_period=1,
             validation_step_period=VALIDATION_PERIOD, norm_impl=impl,
             crowd_rescale_factors=factors, **FLAGSHIP)
-        launches = train_main_path(settings, dev, smi)
+        launches, step_ms[impl, factors] = train_main_path(settings, dev,
+                                                           smi)
     # The training kernels' launches are those of the last run, the
     # rescale sampler's, which launches all four.
 
@@ -2180,6 +2536,11 @@ def main() -> int:
     log("tiers: " + json.dumps(tiers))
     aux_cli_main_path(dev, os.path.join(logs, "database", "raw"),
                       os.path.join(logs, "aux_cli"))
+
+    # 13. data parallelism: a world of 1 over NCCL, a world of 2 over gloo
+    parallel = dp_main_path(dev, os.path.join(logs, "parallel"), smi,
+                            step_ms["pallas", ()])
+    log("data parallel: " + json.dumps(parallel))
 
     for entry in entries[:-1]:
         entry["launches"] = launches[entry["name"]]

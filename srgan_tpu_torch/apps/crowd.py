@@ -1,7 +1,7 @@
 """Crowd counting: SR-GAN over random patches of a crowd database.
 
-The port of ``srgan_tpu.apps.crowd.CrowdExperiment`` on one device, with
-its three input tiers:
+The port of ``srgan_tpu.apps.crowd.CrowdExperiment``, with its three
+input tiers:
 
 * resident (the default): the whole training split lives on the device
   (images as uint8); every step draws random (index, offset, flip[,
@@ -29,7 +29,16 @@ Validation writes MAE/RMSE/NVE/NAE for both models, G samples and
 (input | truth | prediction) density triptychs.
 
 The model is ``CROWD_MODELS[crowd_model]``: JointCNN, JointDCNN or
-SpatialPyramidCNN. Not ported yet: dataset sharding.
+SpatialPyramidCNN.
+
+Under data parallelism every rank draws the global batch's patch
+arguments from the same stream and cuts its share of the patches with
+its own sampler launches. The training splits are replicated on every
+rank, or with ``crowd_shard_dataset`` sharded: each rank holds its block
+of the split cyclically padded to a multiple of the ranks (or its rows
+of a sharded window), samples it with LOCAL indices, and never draws a
+padded duplicate (per-position bounds, :func:`shard_local_counts`).
+Grid evaluation splits each chunk of images over the ranks.
 """
 
 from __future__ import annotations
@@ -54,10 +63,32 @@ from srgan_tpu_torch.models.crowd import (CROWD_MODELS, CrowdDCGenerator,
                                           SpatialPyramidCNN)
 from srgan_tpu_torch.ops.patches import (extract_patches,
                                          extract_rescaled_patches)
+from srgan_tpu_torch.parallel.mesh import (all_ranks_agree, data_axis_size,
+                                           gather_rows)
 from srgan_tpu_torch.train import ModelBundle
 from srgan_tpu_torch.utils.seeding import generator_for
 
 DENSITY_DOWNSAMPLE = 4  # the crowd models' heads emit 1/4-resolution maps
+
+
+def shard_local_counts(n: int, num_shards: int) -> np.ndarray:
+    """True (un-padded) example count per contiguous shard of a length-n
+    array cyclically padded to a multiple of ``num_shards``.
+
+    Shard s holds rows [s·per, (s+1)·per); rows ≥ n are cyclic-pad
+    duplicates, which sampling local indices below the true count keeps
+    out of the draws. A shard that is all padding (n < num_shards) keeps
+    bound 1: its row 0 is a duplicate, and the only row to draw."""
+    per = -(-n // num_shards)
+    counts = n - np.arange(num_shards, dtype=np.int64) * per
+    return np.maximum(np.minimum(counts, per), 1).astype(np.int64)
+
+
+def shard_rows(n: int, num_shards: int, shard: int) -> np.ndarray:
+    """Source rows of shard ``shard`` of a length-n array cyclically
+    padded to a multiple of ``num_shards``."""
+    per = -(-n // num_shards)
+    return np.arange(shard * per, (shard + 1) * per) % n
 
 
 def sum_pool(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -85,8 +116,8 @@ class InputAffine(nn.Module):
 class CrowdExperiment(Experiment):
     """SR-GAN crowd counting with the on-device patch pipeline."""
 
-    def __init__(self, settings, device=None):
-        super().__init__(settings, device)
+    def __init__(self, settings, device=None, data_parallel=None):
+        super().__init__(settings, device, data_parallel)
         self.labeled_db: Optional[CrowdDatabase] = None
         self.unlabeled_db: Optional[CrowdDatabase] = None
         self.validation_db: Optional[CrowdDatabase] = None
@@ -94,6 +125,9 @@ class CrowdExperiment(Experiment):
         self._device_data = None
         self._labeled_index_bound = 0
         self._unlabeled_index_bound = 0
+        # Sharded splits: each shard's true example count.
+        self._labeled_local_counts: Optional[np.ndarray] = None
+        self._unlabeled_local_counts: Optional[np.ndarray] = None
         self._windows: List[HBMWindow] = []
         self._host_io: list = []  # the host tier's readers and prefetchers
         # Grid evaluators by _grid_fn_key, built at first use.
@@ -166,12 +200,19 @@ class CrowdExperiment(Experiment):
                              f"choose float32 or bfloat16")
         return getattr(torch, name)
 
-    def _stacked_labels(self) -> np.ndarray:
-        """Label tensor: [N,H,W,1] density, or [N,H,W,2] (density, aux)."""
+    def _stacked_labels(self, rows=slice(None)) -> np.ndarray:
+        """Label tensor: [N,H,W,1] density, or [N,H,W,2] (density, aux);
+        of ``rows`` alone when given."""
+        dens = self.labeled_db.density_maps[rows]
         if self.uses_aux_target:
-            return np.stack([self.labeled_db.density_maps,
-                             self.labeled_db.aux_maps], axis=-1)
-        return self.labeled_db.density_maps[..., None]
+            return np.stack([dens, self.labeled_db.aux_maps[rows]], axis=-1)
+        return dens[..., None]
+
+    @property
+    def _shard_dataset(self) -> bool:
+        return (self.settings.crowd_shard_dataset
+                and data_axis_size(self.data_parallel) > 1
+                and not self.settings.crowd_host_pipeline)
 
     def _check_hbm_budget(self) -> None:
         """Warn, before an opaque device OOM, when the training splits
@@ -196,10 +237,25 @@ class CrowdExperiment(Experiment):
                     if lab_window else 1.0)
         unl_frac = ((resident(unl_window) / len(self.unlabeled_db))
                     if unl_window else 1.0)
-        db_bytes = (int(self.labeled_db.images.nbytes * lab_frac)
-                    + int(label_bytes * lab_frac)
-                    + int(self.unlabeled_db.images.nbytes * unl_frac)
-                    + self.validation_db.images.nbytes)
+        train_arrays = [int(self.labeled_db.images.nbytes * lab_frac),
+                        int(label_bytes * lab_frac),
+                        int(self.unlabeled_db.images.nbytes * unl_frac)]
+        if self._shard_dataset:
+            # One device's shard of each array, with the cyclic pad to a
+            # multiple of the ranks (what _upload_databases places).
+            d = data_axis_size(self.data_parallel)
+
+            def shard_bytes(total, n):
+                return -(-n // d) * (total // max(n, 1))
+
+            lab_n = lab_window or len(self.labeled_db)
+            train_arrays = [
+                shard_bytes(train_arrays[0], lab_n),
+                shard_bytes(train_arrays[1], lab_n),
+                shard_bytes(train_arrays[2],
+                            unl_window or len(self.unlabeled_db))]
+        # The validation split is on every device.
+        db_bytes = sum(train_arrays) + self.validation_db.images.nbytes
         if self.device.type == "cuda":
             limit = torch.cuda.get_device_properties(
                 self.device).total_memory
@@ -219,8 +275,9 @@ class CrowdExperiment(Experiment):
                                "window: full-speed sampling, dataset "
                                "streams through device memory "
                                "asynchronously)")
-            hatches.append("crowd_shard_dataset=True (capacity scales "
-                           "with the number of devices)")
+            if not self._shard_dataset:
+                hatches.append("crowd_shard_dataset=True (capacity "
+                               "scales with the number of devices)")
             hatches.append("crowd_host_pipeline=True (native host "
                            "streaming)")
             warnings.warn(
@@ -258,7 +315,12 @@ class CrowdExperiment(Experiment):
 
     def _build_window(self, names, sources, num_examples: int,
                       window: int, stream: int) -> HBMWindow:
+        """A window on this device: the whole window on every rank, or
+        this rank's shard of it under ``crowd_shard_dataset``; under data
+        parallelism its opportunistic refreshes agreed by every rank."""
         settings = self.settings
+        dp = self.data_parallel
+        sharded = self._shard_dataset
         # [seed, stream, start] as the other data streams: distinct
         # streams for the labeled and unlabeled windows (equal-sized
         # splits would rotate in lockstep), a fresh order on resume.
@@ -267,7 +329,11 @@ class CrowdExperiment(Experiment):
             settings.crowd_window_slices,
             seed=[settings.seed, stream, self._start_step],
             device=self.device,
-            refresh_period=settings.crowd_window_refresh_period)
+            refresh_period=settings.crowd_window_refresh_period,
+            num_shards=data_axis_size(dp) if sharded else 1,
+            shard=dp.rank if sharded else 0,
+            agree=(None if dp is None else
+                   functools.partial(all_ranks_agree, dp=dp)))
 
     def _refresh_windows(self, step: int) -> None:
         for w in self._windows:
@@ -297,7 +363,12 @@ class CrowdExperiment(Experiment):
         host tier keeps the training splits on the host; the window tier
         keeps a rotating window of any split larger than
         ``crowd_hbm_window`` (the samplers' index bound is then the
-        window)."""
+        window).
+
+        Under ``crowd_shard_dataset`` each rank places its block of each
+        split cyclically padded to a multiple of the ranks (or its shard
+        of the window) and samples it with local indices below its
+        block's true count."""
         settings = self.settings
         device = self.device
         self._close_inputs()  # a rebuild must not leak stager threads
@@ -319,8 +390,30 @@ class CrowdExperiment(Experiment):
         self._check_hbm_budget()
         lab_window = self._window_size_for(self.labeled_db)
         unl_window = self._window_size_for(self.unlabeled_db)
-        self._labeled_index_bound = lab_window or len(self.labeled_db)
-        self._unlabeled_index_bound = unl_window or len(self.unlabeled_db)
+        self._labeled_local_counts = self._unlabeled_local_counts = None
+        if self._shard_dataset:
+            d = data_axis_size(self.data_parallel)
+            rank = self.data_parallel.rank
+
+            def counts(window, n):
+                # A sharded window's blocks are always full.
+                return (np.full(d, window // d, np.int64) if window
+                        else shard_local_counts(n, d))
+
+            self._labeled_local_counts = counts(lab_window,
+                                                len(self.labeled_db))
+            self._unlabeled_local_counts = counts(unl_window,
+                                                  len(self.unlabeled_db))
+            self._labeled_index_bound = int(self._labeled_local_counts[0])
+            self._unlabeled_index_bound = int(
+                self._unlabeled_local_counts[0])
+            lab_rows = shard_rows(len(self.labeled_db), d, rank)
+            unl_rows = shard_rows(len(self.unlabeled_db), d, rank)
+        else:
+            self._labeled_index_bound = lab_window or len(self.labeled_db)
+            self._unlabeled_index_bound = (unl_window
+                                           or len(self.unlabeled_db))
+            lab_rows = unl_rows = slice(None)
         if lab_window:
             window = self._build_window(
                 ["labeled_images", "labeled_density"],
@@ -331,10 +424,10 @@ class CrowdExperiment(Experiment):
             self._windows.append(window)
             self._device_data.update(window.arrays)
         else:
-            labels = torch.from_numpy(self._stacked_labels())
+            labels = torch.from_numpy(self._stacked_labels(lab_rows))
             self._device_data.update({
                 "labeled_images": torch.from_numpy(
-                    self.labeled_db.images).to(device),
+                    self.labeled_db.images[lab_rows]).to(device),
                 "labeled_density": labels.to(device).to(self._label_dtype),
             })
         if unl_window:
@@ -347,7 +440,7 @@ class CrowdExperiment(Experiment):
             self._device_data.update(window.arrays)
         else:
             self._device_data["unlabeled_images"] = torch.from_numpy(
-                self.unlabeled_db.images).to(device)
+                self.unlabeled_db.images[unl_rows]).to(device)
 
     def _prepare_host_pipeline(self) -> None:
         """Export the training splits as .npy and start the native
@@ -644,16 +737,27 @@ class CrowdExperiment(Experiment):
 
     def _patch_args_stream(self):
         """Endless per-step host draws: labeled then unlabeled
-        ``(idx, offs, flips, sidx)`` for each step."""
+        ``(idx, offs, flips, sidx)`` for each step, of the global batch;
+        under data parallelism this rank's positions of them.
+
+        Sharded splits bound each position's index by its shard's true
+        count (the batch splits contiguously over the shards), so that
+        cyclic-pad duplicates are never drawn."""
         settings = self.settings
         rng = np.random.default_rng([settings.seed, 1, self._start_step])
         batch = settings.batch_size
         hw = self.labeled_db.image_size
         uhw = self.unlabeled_db.image_size
         n_lab, n_unl = self._labeled_index_bound, self._unlabeled_index_bound
+        if self._labeled_local_counts is not None:
+            per = batch // data_axis_size(self.data_parallel)
+            n_lab = np.repeat(self._labeled_local_counts, per)
+            n_unl = np.repeat(self._unlabeled_local_counts, per)
+        share = self.data_share
         while True:
-            yield (self._random_patch_args(rng, n_lab, hw, batch)
-                   + self._random_patch_args(rng, n_unl, uhw, batch))
+            draws = (self._random_patch_args(rng, n_lab, hw, batch)
+                     + self._random_patch_args(rng, n_unl, uhw, batch))
+            yield tuple(a[share] for a in draws)
 
     def epoch_batch_iterators(self):
         if self.settings.crowd_host_pipeline:
@@ -682,16 +786,20 @@ class CrowdExperiment(Experiment):
         steps = self.steps_per_epoch()
         p = self.settings.image_patch_size
 
+        share = self.data_share
+
         def host_batches():
+            # The prefetchers draw the global batch on every rank; each
+            # rank copies its share and gathers only its share's labels.
             for _ in range(steps):
                 patches, idx, offs, flips = \
                     self._labeled_prefetcher.next_with_params()
-                labels = self._density_reader.gather_crops(idx, offs,
-                                                           flips, p)
+                labels = self._density_reader.gather_crops(
+                    idx[share], offs[share], flips[share], p)
                 if labels.shape[-1] == 1:
                     labels = labels[..., 0]
                 upatches, _ = self._unlabeled_prefetcher.next()
-                yield patches, labels, upatches
+                yield patches[share], labels, upatches[share]
 
         while True:
             yield prefetch_to_device(host_batches(), self.device)
@@ -831,20 +939,27 @@ class CrowdExperiment(Experiment):
             mask_ds = np.ones((n, 1, 1), np.float32)
         out_shape = (n, h // f, w // f) if return_maps else (n,)
         counts = np.zeros(out_shape, np.float32)
-        # A fixed chunk: the tail repeats the last id, and the repeats'
+        # A fixed chunk, a multiple of the ranks, each rank evaluating
+        # its block of it: the tail repeats the last id, and the repeats'
         # outputs are dropped.
-        chunk = self.EVAL_CHUNK_IMAGES
+        dp = self.data_parallel
+        d = data_axis_size(dp)
+        chunk = -(-self.EVAL_CHUNK_IMAGES // d) * d
         for start in range(0, n, chunk):
             image_ids = np.arange(start, min(start + chunk, n))
             k = len(image_ids)
             if k < chunk:
                 image_ids = np.concatenate(
                     [image_ids, np.full(chunk - k, image_ids[-1], np.int64)])
+            if dp is not None:
+                image_ids = image_ids[dp.share(chunk)]
             ids = torch.from_numpy(image_ids.astype(np.int32)).to(
                 self.device)
             masks = torch.from_numpy(mask_ds[image_ids]).to(self.device)
-            got = counts_fn(model, images, ids, masks).cpu().numpy()
-            counts[start:start + k] = got[:k]
+            got = counts_fn(model, images, ids, masks)
+            if dp is not None:
+                got = gather_rows(got, dp)
+            counts[start:start + k] = got.cpu().numpy()[:k]
         return counts
 
     @staticmethod

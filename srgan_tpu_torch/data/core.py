@@ -5,7 +5,8 @@ The port of ``srgan_tpu.data.core``. :class:`ArrayDataset`,
 :func:`epoch_batches` and :func:`cycling_batches` are NumPy and are the
 JAX package's as they are, so that one NumPy generator gives both
 packages the same batches, index for index. :func:`prefetch_to_device`
-keeps ``size`` batches in flight with pinned, non-blocking copies.
+keeps ``size`` batches in flight with pinned, non-blocking copies; under
+data parallelism it copies only the rank's share of each batch.
 """
 
 from __future__ import annotations
@@ -86,16 +87,18 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def prefetch_to_device(iterator: Iterable[Tuple[np.ndarray, ...]],
-                       device: torch.device, size: int = 2
+                       device: torch.device, size: int = 2,
+                       share: slice = slice(None)
                        ) -> Iterator[Tuple[torch.Tensor, ...]]:
     """Tuples of host arrays → tuples of tensors on ``device``, ``size``
     batches in flight: the copies of the next batches are queued while
-    the current one is consumed."""
+    the current one is consumed. ``share`` selects the rows to copy (a
+    data-parallel rank's; all by default)."""
     queue = collections.deque()
     it = iter(iterator)
 
     def put(batch):
-        return tuple(to_device(a, device) for a in batch)
+        return tuple(to_device(a[share], device) for a in batch)
 
     for batch in itertools.islice(it, size):
         queue.append(put(batch))

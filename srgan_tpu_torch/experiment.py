@@ -4,21 +4,32 @@ checkpoints, the training loop, prediction and validation.
 The port of ``srgan_tpu.experiment.Experiment`` (``train``,
 ``training_loop``, ``load_models``/``save_models``,
 ``prepare_for_evaluation``, ``epoch_batch_iterators``, ``predict``,
-``validation_summaries``, ``evaluate``, ``test``) on one device. The
-loop enqueues steps without waiting for the device and synchronizes only
-on summary, checkpoint and validation steps.
+``validation_summaries``, ``evaluate``, ``test``). The loop enqueues
+steps without waiting for the device and synchronizes only on summary,
+checkpoint and validation steps.
 
 An experiment runs on the CUDA card unless it is given ``device="cpu"``
 (or another device): without a card, :func:`default_device` raises
 rather than train on the CPU unasked.
 
+Data parallelism (``Settings.data_parallel_devices``; ``None`` means
+every visible card, 1 on the CPU): an experiment built with
+``data_parallel=dp`` is one rank. It holds its share of every global
+batch, its step reduces the global objective (``train.py``), rank 0
+alone writes summaries and checkpoints, every rank restores from the
+file after a barrier, and ``predict`` and the evaluations split each
+chunk over the ranks and gather it. ``train()`` called without a group
+when the settings ask for more than one rank spawns the ranks
+(``parallel/launch.py``), waits for them, and restores the trained
+state from the last checkpoint into this process.
+
 ``dnn_only`` trains the DNN alone (``make_dnn_train_step``);
 ``profile_step_range`` traces steps ``[start, end)`` with
 ``torch.profiler`` into ``<trial>/profile/``; ``debug_nans`` turns on
 autograd's anomaly mode for ``train()`` and checks every step's metrics.
-Not ported yet (``ROADMAP.md``): the mesh, the crowd app's dataset
-sharding and the K-step dispatch. A setting that asks for one of them
-raises ``NotImplementedError`` (:func:`check_supported`).
+Not ported yet (``ROADMAP.md``): the tensor-parallel mesh and the K-step
+dispatch. A setting that asks for one of them raises
+``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -35,6 +46,9 @@ from srgan_tpu_torch import checkpoint, metrics
 from srgan_tpu_torch.data.core import (ArrayDataset, cycling_batches,
                                        epoch_batches, prefetch_to_device,
                                        to_device)
+from srgan_tpu_torch.parallel.mesh import (DataParallel, barrier,
+                                           data_axis_size, gather_rows,
+                                           rank_devices)
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.train import (ModelBundle, SRGANTrainState,
                                    default_labeled_loss_fn, init_train_state,
@@ -49,7 +63,6 @@ from srgan_tpu_torch.utils.summary import SummaryWriter, make_trial_directory
 _UNPORTED = {
     "steps_per_dispatch": 1,
     "model_parallel_devices": 1,
-    "crowd_shard_dataset": False,
 }
 
 
@@ -67,14 +80,20 @@ def check_supported(settings: Settings) -> None:
         raise NotImplementedError(
             "norm_impl='fast' (FastGroupNorm) is not ported to PyTorch; the "
             "port runs norm_impl='xla' or 'pallas'")
-    if settings.data_parallel_devices not in (None, 1):
-        raise NotImplementedError(
-            f"data_parallel_devices={settings.data_parallel_devices} is not "
-            f"ported to PyTorch yet; the port trains on one device")
+
+
+def check_batch_divides(batch_size: int, ranks: int) -> None:
+    """JAX's refusal of a batch that does not split over the mesh."""
+    if batch_size % ranks != 0:
+        raise ValueError(
+            f"batch_size {batch_size} must be divisible by the "
+            f"data-parallel mesh size {ranks} (set "
+            f"Settings.data_parallel_devices to restrict the mesh)")
 
 
 class Experiment:
-    """Orchestrates one SR-GAN trial on one device.
+    """Orchestrates one SR-GAN trial on one device, or as one rank of a
+    data-parallel group (``data_parallel``, whose device it runs on).
 
     Subclasses bind an application by implementing :meth:`dataset_setup`
     and :meth:`model_setup` (and, for an app with its own input pipeline
@@ -83,11 +102,23 @@ class Experiment:
     """
 
     def __init__(self, settings: Settings,
-                 device: Optional[torch.device | str] = None):
+                 device: Optional[torch.device | str] = None,
+                 data_parallel: Optional[DataParallel] = None):
         self.settings = settings
+        self.data_parallel = data_parallel
+        if data_parallel is not None:
+            wanted = settings.data_parallel_devices
+            if wanted is not None and wanted != data_parallel.world_size:
+                raise ValueError(
+                    f"data_parallel_devices={wanted} but the group has "
+                    f"{data_parallel.world_size} ranks")
+            device = data_parallel.device if device is None else device
         self.device = torch.device(device) if device is not None \
             else default_device()
         self.trial_directory: Optional[str] = None
+        # The trial directory of a run whose ranks were spawned: resolved
+        # before the spawn, so that every rank names the same one.
+        self.given_trial_directory: Optional[str] = None
         self.dnn_summary_writer: Optional[SummaryWriter] = None
         self.gan_summary_writer: Optional[SummaryWriter] = None
         self.labeled_dataset = None
@@ -144,43 +175,72 @@ class Experiment:
                 for lab in epoch_batches(self.labeled_dataset,
                                          settings.batch_size, data_rng))
             yield (tuple(map(model_layout, batch)) for batch in
-                   prefetch_to_device(batches, self.device))
+                   prefetch_to_device(batches, self.device,
+                                      share=self.data_share))
 
     # ------------------------------------------------------------- plumbing
-    def prepare_summary_writers(self) -> None:
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes summaries and checkpoints: rank 0,
+        or a run without a group."""
+        return self.data_parallel is None or self.data_parallel.is_writer
+
+    @property
+    def data_share(self) -> slice:
+        """This rank's rows of a global batch (all of them without a
+        group)."""
+        if self.data_parallel is None:
+            return slice(None)
+        return self.data_parallel.share(self.settings.batch_size)
+
+    def prepare_summary_writers(self, prefix: str = "") -> None:
         """Two writers, so the DNN baseline and the SR-GAN compare
-        directly."""
+        directly; on a rank other than 0 they write nothing."""
         period = self.settings.summary_step_period
         self.dnn_summary_writer = SummaryWriter(
-            os.path.join(self.trial_directory, "DNN"), period)
+            os.path.join(self.trial_directory, f"{prefix}DNN"), period,
+            enabled=self.is_writer)
         self.gan_summary_writer = SummaryWriter(
-            os.path.join(self.trial_directory, "GAN"), period)
+            os.path.join(self.trial_directory, f"{prefix}GAN"), period,
+            enabled=self.is_writer)
 
     def prepare_train_step(self) -> None:
+        dp = self.data_parallel
+        check_batch_divides(self.settings.batch_size, data_axis_size(dp))
         if self.settings.dnn_only:
             # The supervised baseline alone: no G/D updates, labeled
             # batches only (the loop's _step).
             self._train_step = make_dnn_train_step(
-                self.settings, labeled_loss_fn=self.labeled_loss_fn())
+                self.settings, labeled_loss_fn=self.labeled_loss_fn(),
+                dp=dp)
         else:
             self._train_step = make_gan_train_step(
                 self.settings, labeled_loss_fn=self.labeled_loss_fn(),
-                latent_shape=self.latent_shape())
+                latent_shape=self.latent_shape(), dp=dp)
         self._rng = generator_for(self.settings.seed, "train", self.device,
                                   start=self._start_step)
+
+    def _restore(self, path: str) -> None:
+        """Restore ``path`` into the state; under a group, after a
+        barrier, so that a checkpoint rank 0 wrote is complete."""
+        if self.data_parallel is not None:
+            barrier(self.data_parallel)
+        self.state = checkpoint.restore_state(self.state, path)
 
     def load_models(self) -> None:
         """Resume from ``settings.load_model_path`` (a trial directory or
         one of its ``checkpoints/step_<N>``)."""
         if self.settings.load_model_path:
-            self.state = checkpoint.restore_state(
-                self.state, self.settings.load_model_path)
+            self._restore(self.settings.load_model_path)
             self._start_step = self.state.step
 
-    def save_models(self) -> str:
+    def save_models(self) -> Optional[str]:
         """Enqueue a checkpoint of the state at its step: blocks only for
         the device→host copy; the file write overlaps the next steps and
-        is joined in :meth:`close`."""
+        is joined in :meth:`close`. Rank 0 alone writes (its path is
+        returned; other ranks return None)."""
+        if not self.is_writer:
+            return None
         if self._checkpointer is None:
             self._checkpointer = checkpoint.AsyncStateCheckpointer()
         return self._checkpointer.save(self.state, self.trial_directory,
@@ -205,27 +265,52 @@ class Experiment:
         checkpoint source, as ``settings.load_model_path`` is; summaries
         go to its ``eval_GAN``/``eval_DNN``."""
         check_supported(self.settings)
+        self.trial_directory = trial_directory
+        self.prepare_summary_writers(prefix="eval_")
+        self._restore_for_evaluation(trial_directory)
+        return self.state
+
+    def _restore_for_evaluation(self, path: str) -> None:
+        """Data (training splits skipped), models and the state restored
+        from ``path``."""
         set_float32_precision()
         self._evaluation_only = True
-        self.trial_directory = trial_directory
-        period = self.settings.summary_step_period
-        self.dnn_summary_writer = SummaryWriter(
-            os.path.join(trial_directory, "eval_DNN"), period)
-        self.gan_summary_writer = SummaryWriter(
-            os.path.join(trial_directory, "eval_GAN"), period)
         self.dataset_setup()
         self.models = self.model_setup()
-        self.state = init_train_state(self.settings, self.models)
+        self.state = init_train_state(self.settings, self.models,
+                                      self.data_parallel)
         self.prepare_train_step()
-        self.state = checkpoint.restore_state(self.state, trial_directory)
-        return self.state
+        self._restore(path)
+
+    def _make_trial_directory(self) -> str:
+        """The given trial directory, else a new one; under a group rank
+        0 makes it and the others take its name."""
+        if self.given_trial_directory is not None:
+            os.makedirs(self.given_trial_directory, exist_ok=True)
+            return self.given_trial_directory
+        dp = self.data_parallel
+        name = [make_trial_directory(self.settings) if self.is_writer
+                else None]
+        if dp is not None:
+            torch.distributed.broadcast_object_list(name, src=0,
+                                                    group=dp.host_group)
+        return name[0]
 
     # ------------------------------------------------------------- training
     def train(self) -> SRGANTrainState:
         """Full trial: trial directory, summaries, data, models, the
-        restore of ``load_model_path``, the loop and a last checkpoint."""
+        restore of ``load_model_path``, the loop and a last checkpoint.
+
+        Without a group, when the settings ask for more than one rank,
+        the ranks are spawned to train and the trained state is restored
+        here from the last checkpoint (see :meth:`_train_on_ranks`)."""
         settings = self.settings
         check_supported(settings)
+        if self.data_parallel is None:
+            devices = rank_devices(settings.data_parallel_devices,
+                                   device=self.device)
+            if len(devices) > 1:
+                return self._train_on_ranks(devices)
         set_float32_precision()
         # A prepare_for_evaluation() before must not leak its skipped
         # training splits into a training run.
@@ -235,12 +320,13 @@ class Experiment:
         if settings.debug_nans:
             torch.autograd.set_detect_anomaly(True)
         try:
-            self.trial_directory = make_trial_directory(settings)
+            self.trial_directory = self._make_trial_directory()
             self.prepare_summary_writers()
             seed_all(settings.seed)
             self.dataset_setup()
             self.models = self.model_setup()
-            self.state = init_train_state(settings, self.models)
+            self.state = init_train_state(settings, self.models,
+                                          self.data_parallel)
             # Restore before the input pipeline is built: the step stream
             # and the patch draws start at the restored step.
             self.load_models()
@@ -251,6 +337,19 @@ class Experiment:
         finally:
             self.close()
             torch.autograd.set_detect_anomaly(*anomaly)
+
+    def _train_on_ranks(self, devices) -> SRGANTrainState:
+        """``train()`` on one spawned rank per device, under one trial
+        directory made here; then the last checkpoint restored into this
+        process (on its device, without a group) for ``evaluate`` and
+        ``predict``."""
+        from srgan_tpu_torch.parallel.launch import run_experiment
+        check_batch_divides(self.settings.batch_size, len(devices))
+        self.trial_directory = make_trial_directory(self.settings)
+        run_experiment(type(self), self.settings, devices,
+                       trial_directory=self.trial_directory)
+        self._restore_for_evaluation(self.trial_directory)
+        return self.state
 
     def training_loop(self) -> None:
         """Epochs of labeled batches, each step the fused GAN + DNN
@@ -270,7 +369,7 @@ class Experiment:
         epochs = self.epoch_batch_iterators()
         while step < total_steps:
             for labeled_x, labels, unlabeled_x in next(epochs):
-                if (profile_range and profiler is None
+                if (profile_range and profiler is None and self.is_writer
                         and step == profile_range[0]):
                     profiler = self._start_profiler()
                 self.state, step_metrics = self._step(labeled_x, labels,
@@ -344,6 +443,8 @@ class Experiment:
 
     def write_step_summaries(self, step_metrics: Dict[str, torch.Tensor]
                              ) -> None:
+        if not self.is_writer:
+            return  # and no wait for the device
         # One device→host copy for the whole dict.
         names = list(step_metrics)
         values = torch.stack([step_metrics[k].float() for k in names]).cpu()
@@ -361,16 +462,27 @@ class Experiment:
     def predict(self, dataset: ArrayDataset,
                 use_dnn: Optional[bool] = None) -> np.ndarray:
         """Predictions of D (or the DNN) on ``dataset``, float32 on the
-        host, in chunks of ``batch_size`` (the last one shorter)."""
+        host, in chunks of ``batch_size`` (the last one shorter). Under a
+        group each chunk, its tail padded with its last example to a
+        multiple of the ranks, splits over the ranks and is gathered."""
         use_dnn = self._resolve_use_dnn(use_dnn)
         model = self.state.dnn if use_dnn else self.state.d
         bs = self.settings.batch_size
+        dp = self.data_parallel
         outs = []
         with torch.inference_mode():
             for start in range(0, len(dataset), bs):
-                x = model_layout(to_device(
-                    dataset.examples[start:start + bs], self.device))
-                outs.append(model(x)[0].float().cpu().numpy())
+                chunk = dataset.examples[start:start + bs]
+                k = len(chunk)
+                pad = -k % data_axis_size(dp)
+                if pad:
+                    chunk = np.concatenate([chunk] + [chunk[-1:]] * pad)
+                rows = slice(None) if dp is None else dp.share(len(chunk))
+                out = model(model_layout(to_device(chunk[rows],
+                                                   self.device)))[0].float()
+                if dp is not None:
+                    out = gather_rows(out, dp)
+                outs.append(out[:k].cpu().numpy())
         return np.concatenate(outs, axis=0)
 
     def validation_summaries(self, epoch: int, step: int) -> None:

@@ -15,6 +15,17 @@ parameters, so no stray gradients collect in another model's ``.grad``;
 then its Adam takes a step. PyTorch runs eagerly: the step updates the
 modules and optimizers of the state in place, where the JAX step returns
 a new state.
+
+Under data parallelism (``dp``) each rank holds its share of the global
+batch and the losses are the global batch's (``losses``): replicated on
+every rank, differentiated through sum all-reduces whose backward sums
+again. A rank's gradient is then W times its share of the true one, at
+every order: the parameters' gradients are averaged over the ranks
+(before the global-norm clip, as JAX clips the global gradient), and the
+penalty's inner input gradient is taken with a cotangent of 1/W, so that
+its norm is the example's true gradient norm. z_d, α and z_g are drawn
+for the global batch from the same generator on every rank, each rank
+taking its rows: a W-rank run consumes the one-rank run's draws.
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ import torch
 from torch import nn
 
 from srgan_tpu_torch import losses
+from srgan_tpu_torch.parallel.mesh import (DataParallel, average_gradients,
+                                           broadcast_module)
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.utils.mixture import sample_offset_normal
 
@@ -72,11 +85,13 @@ class Optimizer:
     optax's ``clip_by_global_norm`` scales the gradients by
     ``max_norm / norm`` when ``norm > max_norm``, with no ε, which is what
     :meth:`step` does (``clip_grad_norm_`` would divide by norm + 1e-6).
+    Under ``dp`` the gradients are first averaged over the ranks.
     """
 
     def __init__(self, settings: Settings, params: List[nn.Parameter],
-                 weight_decay: bool):
+                 weight_decay: bool, dp: Optional[DataParallel] = None):
         self.params = params
+        self.dp = dp
         self.clip_norm = settings.gradient_clip_norm
         kwargs = dict(lr=settings.learning_rate,
                       betas=(settings.adam_b1, settings.adam_b2), eps=1e-8)
@@ -87,6 +102,8 @@ class Optimizer:
             self.adam = torch.optim.Adam(params, weight_decay=0.0, **kwargs)
 
     def step(self, grads: Tuple[Tensor, ...]) -> None:
+        if self.dp is not None:
+            grads = average_gradients(grads, self.dp)
         if self.clip_norm > 0.0:
             norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
             factor = torch.where(norm < self.clip_norm,
@@ -98,26 +115,33 @@ class Optimizer:
         self.adam.step()
 
 
-def make_optimizer(settings: Settings, params, weight_decay: bool = False
-                   ) -> Optimizer:
+def make_optimizer(settings: Settings, params, weight_decay: bool = False,
+                   dp: Optional[DataParallel] = None) -> Optimizer:
     """Adam (AdamW when decayed), clipped when ``gradient_clip_norm > 0``.
 
     ``torch.optim.Adam`` and ``optax.adam`` compute the same update,
     ``lr · m̂ / (√v̂ + ε)`` with ε = 1e-8.
     """
-    return Optimizer(settings, list(params), weight_decay)
+    return Optimizer(settings, list(params), weight_decay, dp)
 
 
-def init_train_state(settings: Settings, models: ModelBundle
-                     ) -> SRGANTrainState:
+def init_train_state(settings: Settings, models: ModelBundle,
+                     dp: Optional[DataParallel] = None) -> SRGANTrainState:
+    """The models and their optimizers; under ``dp`` the models are
+    first broadcast from rank 0, so that every rank starts alike."""
+    modules = [m for m in (models.d, models.g, models.dnn) if m is not None]
+    if dp is not None:
+        for module in modules:
+            broadcast_module(module, dp)
     return SRGANTrainState(
         step=0,
         d=models.d, d_opt=make_optimizer(settings, models.d.parameters(),
-                                         weight_decay=True),
-        g=models.g, g_opt=make_optimizer(settings, models.g.parameters()),
+                                         weight_decay=True, dp=dp),
+        g=models.g, g_opt=make_optimizer(settings, models.g.parameters(),
+                                         dp=dp),
         dnn=models.dnn,
         dnn_opt=(make_optimizer(settings, models.dnn.parameters(),
-                                weight_decay=True)
+                                weight_decay=True, dp=dp)
                  if models.dnn is not None else None))
 
 
@@ -137,6 +161,7 @@ def make_gan_train_step(
     settings: Settings,
     labeled_loss_fn: Optional[Callable] = None,
     latent_shape: Optional[Tuple[int, ...]] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Callable[..., Tuple[SRGANTrainState, Dict[str, Tensor]]]:
     """Build the fused (D + G [+ DNN]) step.
 
@@ -146,6 +171,10 @@ def make_gan_train_step(
     they are given, which is how a test feeds the step the JAX package's
     draws. ``metrics`` holds 0-dim tensors on the device: reading them
     synchronizes, so the training loop reads them only on summary steps.
+
+    Under ``dp`` the batch tensors are this rank's share, the draws
+    (drawn or given) are the global batch's, and the metrics are the
+    global losses, the same on every rank.
     """
     labeled_loss_fn = labeled_loss_fn or default_labeled_loss_fn(settings)
     z_dim = settings.latent_dimension
@@ -162,7 +191,7 @@ def make_gan_train_step(
         return losses.fake_loss(
             f_u, f_other, multiplier=fake_mult,
             order=settings.fake_loss_order,
-            distance_function=settings.contrasting_distance_function)
+            distance_function=settings.contrasting_distance_function, dp=dp)
 
     def d_streams(d: nn.Module, labeled_x, unlabeled_x, fake):
         """D on the three primal streams: one forward over the 3B batch
@@ -186,9 +215,10 @@ def make_gan_train_step(
             fake = state.g(z)
         pred_l, f_l, f_u, f_f = d_streams(state.d, labeled_x, unlabeled_x,
                                           fake)
-        l_loss = labeled_loss_fn(pred_l, labels)
+        l_loss = losses.global_mean(labeled_loss_fn(pred_l, labels), dp)
         u_loss = losses.unlabeled_loss(f_l, f_u, multiplier=unl_mult,
-                                       order=settings.unlabeled_loss_order)
+                                       order=settings.unlabeled_loss_order,
+                                       dp=dp)
         f_loss = contrast(f_u, f_f)
         # Gradient penalty: the contrasting loss at the interpolates,
         # differentiated w.r.t. the interpolated INPUTS with create_graph,
@@ -196,9 +226,15 @@ def make_gan_train_step(
         interp = losses.interpolate_inputs(alpha, unlabeled_x, fake)
         interp.requires_grad_(True)
         _, f_i = state.d(interp)
+        inner = contrast(f_u.detach(), f_i)
+        # Under dp the sum all-reduces' backward makes the rank's gradient
+        # W times the example's own: a cotangent of 1/W undoes it.
+        cotangent = (None if dp is None
+                     else torch.full_like(inner, 1.0 / dp.world_size))
         (interp_grads,) = torch.autograd.grad(
-            contrast(f_u.detach(), f_i), interp, create_graph=True)
-        gp = losses.gradient_penalty(interp_grads, multiplier=gp_mult)
+            inner, interp, grad_outputs=cotangent, create_graph=True)
+        gp = losses.gradient_penalty(interp_grads, multiplier=gp_mult,
+                                     dp=dp)
         total = l_loss + u_loss + f_loss + gp
         metrics = {"d_labeled_loss": l_loss, "d_unlabeled_loss": u_loss,
                    "d_fake_loss": f_loss, "d_gradient_penalty": gp,
@@ -211,20 +247,25 @@ def make_gan_train_step(
             _, f_u = state.d(unlabeled_x)
         _, f_f = state.d(fake)
         return losses.generator_loss(f_u, f_f,
-                                     order=settings.unlabeled_loss_order)
+                                     order=settings.unlabeled_loss_order,
+                                     dp=dp)
 
     def step(state: SRGANTrainState, labeled_x: Tensor, labels,
              unlabeled_x: Tensor, rng: Optional[torch.Generator] = None,
              z_d: Optional[Tensor] = None, z_g: Optional[Tensor] = None,
              alpha: Optional[Tensor] = None
              ) -> Tuple[SRGANTrainState, Dict[str, Tensor]]:
-        batch = unlabeled_x.shape[0]
+        batch = unlabeled_x.shape[0] * (1 if dp is None
+                                        else dp.world_size)
         if z_d is None:
             z_d = sample_z(rng, batch)
         if alpha is None:
             alpha = torch.rand((batch,), generator=rng, device=rng.device)
         if z_g is None:
             z_g = sample_z(rng, batch)
+        if dp is not None:
+            share = dp.share(batch)
+            z_d, alpha, z_g = z_d[share], alpha[share], z_g[share]
 
         # ---- D update ----------------------------------------------------
         d_params = state.d_opt.params
@@ -246,7 +287,7 @@ def make_gan_train_step(
         # ---- DNN baseline update -----------------------------------------
         if state.dnn is not None:
             pred, _ = state.dnn(labeled_x)
-            loss = labeled_loss_fn(pred, labels)
+            loss = losses.global_mean(labeled_loss_fn(pred, labels), dp)
             dnn_grads = torch.autograd.grad(loss, state.dnn_opt.params)
             state.dnn_opt.step(dnn_grads)
             metrics["dnn_loss"] = loss.detach()
@@ -260,11 +301,13 @@ def make_gan_train_step(
 def make_dnn_train_step(
     settings: Settings,
     labeled_loss_fn: Optional[Callable] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Callable[..., Tuple[SRGANTrainState, Dict[str, Tensor]]]:
     """Build the supervised-only step of ``dnn_only`` trials:
     ``step(state, labeled_x, labels) -> (state, {"dnn_loss": ...})``.
     Only the DNN and its (decayed) optimizer move; D and G stay at their
-    init. ``state.step`` advances as in the SR-GAN step."""
+    init. ``state.step`` advances as in the SR-GAN step. Under ``dp``
+    the loss is the global batch's."""
     labeled_loss_fn = labeled_loss_fn or default_labeled_loss_fn(settings)
 
     def step(state: SRGANTrainState, labeled_x: Tensor, labels
@@ -272,7 +315,7 @@ def make_dnn_train_step(
         if state.dnn is None:
             raise ValueError("the DNN-only step needs a DNN in the state")
         pred, _ = state.dnn(labeled_x)
-        loss = labeled_loss_fn(pred, labels)
+        loss = losses.global_mean(labeled_loss_fn(pred, labels), dp)
         grads = torch.autograd.grad(loss, state.dnn_opt.params)
         state.dnn_opt.step(grads)
         state.step += 1

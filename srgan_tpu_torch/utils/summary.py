@@ -21,22 +21,30 @@ except ImportError:  # the JSONL file alone carries every scalar
 
 
 class SummaryWriter:
-    """JSONL (+ tensorboardX) scalar writer with step/period gating."""
+    """JSONL (+ tensorboardX) scalar writer with step/period gating.
+
+    A writer made with ``enabled=False`` (a data-parallel rank other than
+    0) keeps the step gating and writes nothing."""
 
     def __init__(self, log_directory: str, summary_period: int = 1,
-                 use_tensorboard: bool = True):
+                 use_tensorboard: bool = True, enabled: bool = True):
         self.step = 0
         self.summary_period = summary_period
         self.log_directory = log_directory
-        os.makedirs(log_directory, exist_ok=True)
+        self.enabled = enabled
+        if enabled:
+            os.makedirs(log_directory, exist_ok=True)
         self._tb = (_TBWriter(log_directory)
-                    if (use_tensorboard and _TBWriter is not None) else None)
+                    if (enabled and use_tensorboard and _TBWriter is not None)
+                    else None)
         self._jsonl_path = os.path.join(log_directory, "scalars.jsonl")
 
     def is_summary_step(self) -> bool:
         return self.step % self.summary_period == 0
 
     def add_scalar(self, tag: str, value, step: Optional[int] = None) -> None:
+        if not self.enabled:
+            return
         step = self.step if step is None else step
         value = float(value)
         if self._tb is not None:
@@ -49,6 +57,8 @@ class SummaryWriter:
         """image: [H, W, C] float in [0, 1] or [−1, 1] (mapped to [0, 1] if
         any value is negative), C 1 or 3; written as
         ``images/<tag>_<step>.png`` with '/' in the tag as '_'."""
+        if not self.enabled:
+            return
         step = self.step if step is None else step
         image = np.asarray(image, dtype=np.float32)
         if image.min() < 0:

@@ -612,3 +612,77 @@ def test_window_refresh_on_a_side_stream_keeps_the_samplers_reads():
                 host[window.resident_ids()])
         finally:
             window.close()
+
+
+# Data parallelism on the card, small versions of chip_smoke.py's phase
+# 13: a world of 1 over NCCL and a world of 2 over gloo on cuda:0 (NCCL
+# refuses two ranks on one device), float32, 2 steps with validation at
+# the second. With the split replicated every world draws the same global
+# batches, so its models match one rank without a group (rtol 2e-4, atol
+# 2e-5; a conv bias a one-channel GroupNorm cancels has a noise-level
+# gradient, whose Adam step of ±lr may take either sign).
+DP_TINY = dict(batch_size=4, image_patch_size=P, model_base_width=8,
+               latent_dimension=16, labeled_dataset_size=7,
+               unlabeled_dataset_size=5, validation_dataset_size=3,
+               test_dataset_size=1, crowd_image_height=H,
+               crowd_image_width=W, crowd_synthetic_max_heads=12, seed=1,
+               zero_init_heads=False, steps_to_run=2, summary_step_period=1,
+               validation_step_period=2)
+
+
+def _dp_train(tmp_path, devices, **over):
+    import torch_dp_workers as workers
+    from srgan_tpu_torch import CrowdExperiment, Settings
+    from srgan_tpu_torch.parallel import launch
+
+    settings = Settings(**dict(DP_TINY, logs_directory=str(tmp_path),
+                               data_parallel_devices=len(devices), **over))
+    return settings, launch.run_experiment(
+        CrowdExperiment, settings, devices, action=workers.trained_models,
+        trial_directory=str(tmp_path / f"ranks{len(devices)}"),
+        timeout_s=300, collective_timeout_s=120,
+        directory=str(tmp_path / "store"))
+
+
+@pytest.mark.parametrize("devices", [["cuda:0"], ["cuda:0", "cuda:0"]],
+                         ids=["nccl-world-1", "gloo-world-2"])
+def test_data_parallel_ranks_train_as_one_rank(devices, tmp_path):
+    from srgan_tpu_torch import CrowdExperiment
+
+    settings, results = _dp_train(tmp_path, devices)
+    state = CrowdExperiment(settings.copy(data_parallel_devices=1),
+                            device="cuda").train()
+    lr = settings.learning_rate * settings.steps_to_run
+    for got in results:
+        for name in ("d", "g", "dnn"):
+            ours = getattr(state, name).state_dict()
+            for k, v in got[name].items():
+                want = ours[k].cpu()
+                if (name, k) in got["cancelled"]:
+                    assert float((v - want).abs().max()) <= 2 * lr, k
+                    continue
+                torch.testing.assert_close(v, want, rtol=2e-4, atol=2e-5)
+    for name in ("d", "g", "dnn"):
+        for k, v in results[0][name].items():
+            assert torch.equal(v, results[-1][name][k]), (name, k)
+
+
+def test_data_parallel_sharded_ranks_stay_bit_equal(tmp_path):
+    """A sharded odd split (local counts 4 and 3, 3 and 2) on 2 ranks:
+    finite models, bit-equal on both ranks."""
+    _, (a, b) = _dp_train(tmp_path, ["cuda:0", "cuda:0"],
+                          crowd_shard_dataset=True)
+    for name in ("d", "g", "dnn"):
+        for k, v in a[name].items():
+            assert torch.isfinite(v.float()).all(), (name, k)
+            assert torch.equal(v, b[name][k]), (name, k)
+
+
+def test_more_ranks_than_cards_raise():
+    from srgan_tpu_torch.parallel.mesh import backend_for, rank_devices
+
+    count = torch.cuda.device_count()
+    assert backend_for(rank_devices()) == "nccl"
+    assert len(rank_devices()) == count
+    with pytest.raises(ValueError, match="exceeds"):
+        rank_devices(count + 1)
