@@ -181,7 +181,10 @@ FLAGSHIP = dict(  # bench.py's flagship crowd configuration
     unlabeled_dataset_size=16, validation_dataset_size=16,
     # The test split is not read by training; 2 images keep set-up short.
     test_dataset_size=2, crowd_image_height=384, crowd_image_width=512,
-    seed=0, compute_dtype="bfloat16")
+    seed=0, compute_dtype="bfloat16",
+    # One card: the default, every visible card, spawns a rank on each,
+    # and the launch counts of this process would read 0.
+    data_parallel_devices=1)
 # Every GroupNorm of the flagship step as (B, H·W, C, slope, forward
 # launches, backward launches), 32 groups each: D over the 3B batch, D and
 # the DNN over B (the D stages are 112²×64, 56²×128 and twice 56²×256,
@@ -280,11 +283,13 @@ TINY = dict(batch_size=4, image_patch_size=32, model_base_width=8,
             latent_dimension=16, labeled_dataset_size=6,
             unlabeled_dataset_size=6, validation_dataset_size=1,
             test_dataset_size=1, crowd_image_height=80, crowd_image_width=96,
-            crowd_synthetic_max_heads=12, seed=1, zero_init_heads=False)
+            crowd_synthetic_max_heads=12, seed=1, zero_init_heads=False,
+            data_parallel_devices=1)
 APP_TINY = dict(batch_size=4, age_image_size=32, model_base_width=8,
                 latent_dimension=16, hidden_size=8, labeled_dataset_size=6,
                 unlabeled_dataset_size=8, validation_dataset_size=5,
-                test_dataset_size=3, seed=1, mean_offset=0.5)
+                test_dataset_size=3, seed=1, mean_offset=0.5,
+                data_parallel_devices=1)
 # The age and driving apps at full width: 64-px images (the
 # age_image_size and preprocess_imdb_wiki default), base width 64 and a
 # 100-d latent (the DCGAN defaults), batch 32 (the Settings default),
@@ -296,7 +301,8 @@ APP_FULL = dict(trial_name="chip_smoke_app", batch_size=32,
                 compute_dtype="bfloat16", labeled_dataset_size=50,
                 unlabeled_dataset_size=1000, validation_dataset_size=100,
                 test_dataset_size=100, seed=0, summary_step_period=1,
-                steps_to_run=STEPS, validation_step_period=VALIDATION_PERIOD)
+                steps_to_run=STEPS, validation_step_period=VALIDATION_PERIOD,
+                data_parallel_devices=1)
 # The image apps' model on the command line: full width, "pallas".
 APP_CLI_MODEL = dict(norm_impl="pallas", compute_dtype="bfloat16",
                      model_base_width=64, latent_dimension=100)
@@ -1553,14 +1559,16 @@ def preprocess_main_path(dev, root: str) -> tuple:
 
 
 def _cli(argv) -> dict:
-    """``python -m srgan_tpu_torch`` in this process; its JSON line."""
+    """``python -m srgan_tpu_torch`` in this process, on one card (the
+    default, every visible card, would spawn a rank on each); its JSON
+    line."""
     import contextlib
     import io
 
     from srgan_tpu_torch.__main__ import main
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        rc = main(argv)
+        rc = main(argv + ["--data_parallel_devices=1"])
     if rc != 0:
         raise AssertionError(f"main({argv}) returned {rc}")
     return json.loads(out.getvalue().strip().splitlines()[-1])

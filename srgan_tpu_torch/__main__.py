@@ -10,10 +10,11 @@ validation (and test) metrics. It runs on the CUDA card unless given
 ``--device cpu``.
 
 ``--data_parallel_devices N`` (default: every visible card; 1 on the
-CPU) runs N ranks through the launcher (``parallel/launch.py``): each
-trains and evaluates as one rank of the group under one trial directory,
-rank 0 writes the summaries, checkpoints and exports, and its JSON line
-is printed. With ``--device cpu`` the ranks run on the CPU over gloo.
+CPU) trains on N ranks: ``Experiment.train()`` spawns them
+(``parallel/launch.py``) under one trial directory, rank 0 writes the
+summaries and checkpoints, and the trained state is restored into this
+process, which evaluates and exports on its own device. With ``--device
+cpu`` the ranks run on the CPU over gloo.
 
 Examples:
   python -m srgan_tpu_torch coefficient --preset coefficient_win
@@ -40,10 +41,7 @@ import os
 import sys
 import typing
 
-from srgan_tpu_torch.parallel.launch import run_experiment
-from srgan_tpu_torch.parallel.mesh import rank_devices
 from srgan_tpu_torch.settings import Settings
-from srgan_tpu_torch.utils.summary import make_trial_directory
 
 APPS = {
     "coefficient": "srgan_tpu_torch.apps.coefficient:CoefficientExperiment",
@@ -138,42 +136,24 @@ def main(argv=None) -> int:
     module_name, class_name = APPS[args.app].split(":")
     experiment_cls = getattr(importlib.import_module(module_name),
                              class_name)
+    experiment = experiment_cls(settings, device=args.device)
     if args.export_density_maps:
         # Fail on an unwritable destination before the run, not after it.
         _ensure_writable(args.export_density_maps)
-    if args.evaluate_only and not settings.load_model_path:
-        raise SystemExit("--evaluate_only requires --load_model_path")
-    devices = rank_devices(settings.data_parallel_devices,
-                           device=args.device)
-    run_args = (args.evaluate_only, args.export_density_maps)
-    if len(devices) > 1:
-        trial = (None if args.evaluate_only
-                 else make_trial_directory(settings))
-        result = run_experiment(experiment_cls, settings, devices,
-                                action=_run, action_args=run_args,
-                                trial_directory=trial)[0]
-    else:
-        result = _run(experiment_cls(settings, device=args.device),
-                      *run_args)
-    print(json.dumps(result))
-    return 0
-
-
-def _run(experiment, evaluate_only: bool, export_path) -> dict:
-    """Train (or restore) and evaluate: the result's JSON object. Every
-    rank of a data-parallel run calls it; rank 0 alone writes."""
-    if evaluate_only:
-        experiment.prepare_for_evaluation(
-            experiment.settings.load_model_path)
+    if args.evaluate_only:
+        if not settings.load_model_path:
+            raise SystemExit("--evaluate_only requires --load_model_path")
+        experiment.prepare_for_evaluation(settings.load_model_path)
         result = {}
     else:
         experiment.train()
         result = {"trial_directory": experiment.trial_directory}
-    _export_density_maps(experiment, export_path)
+    _export_density_maps(experiment, args.export_density_maps)
     result["validation"] = _evaluate_or_null(experiment)
     _add_test_metrics(experiment, result)
+    print(json.dumps(result))
     experiment.close()
-    return result
+    return 0
 
 
 def _ensure_writable(path: str) -> None:
@@ -196,8 +176,7 @@ def _evaluate_or_null(experiment):
 
 
 def _export_density_maps(experiment, path) -> None:
-    """Write the predicted density canvases, [N, H/4, W/4] per split (on
-    rank 0; every rank predicts its share)."""
+    """Write the predicted density canvases, [N, H/4, W/4] per split."""
     if not path:
         return
     import numpy as np
@@ -213,8 +192,7 @@ def _export_density_maps(experiment, path) -> None:
         if db.image_ids is not None:
             # Tiled databases: each example's (tile's) source image.
             arrays[f"{split}_image_ids"] = db.image_ids
-    if experiment.is_writer:
-        np.savez(path, **arrays)
+    np.savez(path, **arrays)
 
 
 def _add_test_metrics(experiment, result: dict) -> None:

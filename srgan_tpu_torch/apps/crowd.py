@@ -15,7 +15,10 @@ input tiers:
   the same kernels sample the window;
 * the host tier (``crowd_host_pipeline``): the native C++ prefetcher
   (``io/native.py``) gathers uint8 crops on the host's threads; they are
-  copied pinned and non-blocking and normalized on the device.
+  copied pinned and non-blocking and normalized on the device. Under
+  data parallelism every rank draws the global batch's (index, offset,
+  flip) from the resident tier's stream instead, and the native reader
+  gathers the crops of its share alone.
 
 Image and label patches share windows and flips, so augmentation stays
 label-consistent. The label tensor is the density map ``[N, H, W, 1]``,
@@ -382,6 +385,8 @@ class CrowdExperiment(Experiment):
                     "mutually exclusive tiers; the window tier replaces "
                     "host streaming for larger-than-memory databases")
             _ = self._label_dtype  # validated before any export
+            self._labeled_index_bound = len(self.labeled_db)
+            self._unlabeled_index_bound = len(self.unlabeled_db)
             return
         if self._evaluation_only:
             self._labeled_index_bound = len(self.labeled_db)
@@ -443,8 +448,10 @@ class CrowdExperiment(Experiment):
                 self.unlabeled_db.images[unl_rows]).to(device)
 
     def _prepare_host_pipeline(self) -> None:
-        """Export the training splits as .npy and start the native
-        readers and prefetchers (``native/srgan_io.cc``).
+        """Export the training splits as .npy and open the native readers
+        (``native/srgan_io.cc``); with one rank, start the prefetchers
+        (several ranks gather their shares of the global draws instead,
+        :meth:`_host_epoch_iterators`).
 
         The exports live in a ``native_cache`` beside the database
         (reused across runs: the host tier exists for large splits), or
@@ -486,26 +493,29 @@ class CrowdExperiment(Experiment):
         export(paths["density"], lambda: self._stacked_labels().astype(
             np.float32, copy=False))
         export(paths["unlabeled"], lambda: self.unlabeled_db.images)
-        labeled_reader = NativeDatasetReader(paths["labeled"])
+        self._labeled_reader = NativeDatasetReader(paths["labeled"])
         self._density_reader = NativeDatasetReader(paths["density"])
-        unlabeled_reader = NativeDatasetReader(paths["unlabeled"])
+        self._unlabeled_reader = NativeDatasetReader(paths["unlabeled"])
+        self._host_io = [self._labeled_reader, self._density_reader,
+                         self._unlabeled_reader]
+        if data_axis_size(self.data_parallel) > 1:
+            return
         # 2·start keeps the two streams' seeds disjoint (11 + 2k odd,
         # 12 + 2k even) and gives a resumed run fresh orders. Image crops
         # travel as raw uint8 and are normalized on the device.
         threads = max(1, settings.number_of_data_workers)
         self._labeled_prefetcher = NativePrefetcher(
-            labeled_reader, settings.batch_size, settings.image_patch_size,
+            self._labeled_reader, settings.batch_size, settings.image_patch_size,
             output_dtype="uint8", num_threads=threads,
             seed=settings.seed + 11 + 2 * self._start_step)
         self._unlabeled_prefetcher = NativePrefetcher(
-            unlabeled_reader, settings.batch_size,
+            self._unlabeled_reader, settings.batch_size,
             settings.image_patch_size, output_dtype="uint8",
             num_threads=threads,
             seed=settings.seed + 12 + 2 * self._start_step)
         # Prefetchers first: their threads read the readers' maps.
-        self._host_io = [self._labeled_prefetcher,
-                         self._unlabeled_prefetcher, labeled_reader,
-                         self._density_reader, unlabeled_reader]
+        self._host_io[:0] = [self._labeled_prefetcher,
+                             self._unlabeled_prefetcher]
 
     def _wrap_host_train_step(self) -> None:
         """The host tier's step: the uint8 crops are normalized and the
@@ -782,27 +792,47 @@ class CrowdExperiment(Experiment):
     def _host_epoch_iterators(self):
         """The host tier's batches: the labeled prefetcher's uint8 crops,
         the label crops gathered with the same (index, offset, flip), and
-        the unlabeled prefetcher's crops, copied two steps ahead."""
-        steps = self.steps_per_epoch()
-        p = self.settings.image_patch_size
+        the unlabeled prefetcher's crops, copied two steps ahead.
 
-        share = self.data_share
+        Under data parallelism each rank takes its share of the global
+        draws of :meth:`_patch_args_stream` and gathers the image and
+        label crops of that share alone: the ranks' host work adds up to
+        one rank's."""
+        steps = self.steps_per_epoch()
+        args = (None if data_axis_size(self.data_parallel) == 1
+                else self._patch_args_stream())
 
         def host_batches():
-            # The prefetchers draw the global batch on every rank; each
-            # rank copies its share and gathers only its share's labels.
             for _ in range(steps):
-                patches, idx, offs, flips = \
-                    self._labeled_prefetcher.next_with_params()
-                labels = self._density_reader.gather_crops(
-                    idx[share], offs[share], flips[share], p)
-                if labels.shape[-1] == 1:
-                    labels = labels[..., 0]
-                upatches, _ = self._unlabeled_prefetcher.next()
-                yield patches[share], labels, upatches[share]
+                if args is None:
+                    patches, idx, offs, flips = \
+                        self._labeled_prefetcher.next_with_params()
+                    upatches = self._unlabeled_prefetcher.next()[0]
+                else:
+                    idx, offs, flips, _, uidx, uoffs, uflips, _ = next(args)
+                    patches = self._gather_images(self._labeled_reader, idx,
+                                                  offs, flips)
+                    upatches = self._gather_images(self._unlabeled_reader,
+                                                   uidx, uoffs, uflips)
+                yield (patches, self._gather_labels(idx, offs, flips),
+                       upatches)
 
         while True:
             yield prefetch_to_device(host_batches(), self.device)
+
+    def _gather_images(self, reader, idx, offs, flips) -> np.ndarray:
+        """uint8 image crops of a native reader (it gathers float32; the
+        bytes are exact)."""
+        return reader.gather_crops(idx, offs, flips,
+                                   self.settings.image_patch_size
+                                   ).astype(np.uint8)
+
+    def _gather_labels(self, idx, offs, flips) -> np.ndarray:
+        """Label crops at the image crops' (index, offset, flip): [B, P,
+        P] density, or [B, P, P, 2] with an aux map."""
+        labels = self._density_reader.gather_crops(
+            idx, offs, flips, self.settings.image_patch_size)
+        return labels[..., 0] if labels.shape[-1] == 1 else labels
 
     # ----------------------------------------------------------- evaluation
     def _grid_offsets(self, image_hw: Tuple[int, int]) -> np.ndarray:

@@ -38,7 +38,7 @@ def batch_mean(x: Tensor, dp: Optional[DataParallel] = None) -> Tensor:
     batch under ``dp``."""
     if dp is None:
         return x.mean(dim=0)
-    return all_reduce_sum(x.sum(dim=0), dp) / (x.shape[0] * dp.world_size)
+    return all_reduce_sum(x.sum(dim=0)) / (x.shape[0] * dp.world_size)
 
 
 def global_mean(local_mean: Tensor,
@@ -47,7 +47,7 @@ def global_mean(local_mean: Tensor,
     (the ranks' shares are equal)."""
     if dp is None:
         return local_mean
-    return all_reduce_sum(local_mean, dp) / dp.world_size
+    return all_reduce_sum(local_mean) / dp.world_size
 
 
 def mean_features(features: Tensor,

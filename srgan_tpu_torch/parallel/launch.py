@@ -7,10 +7,12 @@ caller's, or a temporary one) and calls ``fn(dp, *args)``; it joins
 them within a time limit and returns their results by rank. A rank that raises or dies ends the
 others and raises here; so does the time limit.
 
-:func:`run_experiment` is the experiments' entry: every rank builds the
-same experiment on its own device and runs an action on it (``train``,
-or the command line's train-and-evaluate), under one trial directory
-resolved before the spawn.
+:func:`run_experiment` runs an experiment on the ranks: every rank
+builds the same experiment on its own device and runs an action on it
+(``train`` by default) under one trial directory resolved before the
+spawn. ``Experiment.train()``, and through it the command line, calls it
+when the settings ask for more than one rank; a caller that names the
+devices (two ranks on one card) calls it directly.
 """
 
 from __future__ import annotations

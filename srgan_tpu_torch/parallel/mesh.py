@@ -45,13 +45,12 @@ BUCKET_BYTES = 32 * 2 ** 20
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
     """This process's place in the data-parallel group: its rank, the
-    number of ranks, its device, the process group of the collectives
-    (``None``: the default group) and a gloo group for host-side
-    agreements (:func:`all_ranks_agree`)."""
+    number of ranks, its device and a gloo group for host-side agreements
+    (:func:`all_ranks_agree`; ``None`` where the default group is gloo).
+    The collectives run in the default group."""
     rank: int
     world_size: int
     device: torch.device
-    group: Optional[dist.ProcessGroup] = None
     host_group: Optional[dist.ProcessGroup] = None
 
     @property
@@ -152,21 +151,20 @@ class _AllReduceSum(torch.autograd.Function):
     the same order on every rank."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
-        ctx.group = group
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
         out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
+        dist.all_reduce(out)
         return out
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        return _AllReduceSum.apply(grad, ctx.group), None
+        return _AllReduceSum.apply(grad)
 
 
-def all_reduce_sum(x: torch.Tensor, dp: DataParallel) -> torch.Tensor:
+def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """``Σ_ranks x``, the same on every rank, differentiable to any
     order (the backward sums the ranks' cotangents)."""
-    return _AllReduceSum.apply(x, dp.group)
+    return _AllReduceSum.apply(x)
 
 
 def gather_rows(local: torch.Tensor, dp: DataParallel) -> torch.Tensor:
@@ -175,7 +173,7 @@ def gather_rows(local: torch.Tensor, dp: DataParallel) -> torch.Tensor:
     n = local.shape[0]
     out = local.new_zeros((n * dp.world_size,) + tuple(local.shape[1:]))
     out[dp.rank * n:(dp.rank + 1) * n] = local
-    dist.all_reduce(out, group=dp.group)
+    dist.all_reduce(out)
     return out
 
 
@@ -196,15 +194,15 @@ def _buckets(tensors: Sequence[torch.Tensor], limit: int):
         yield run
 
 
-def average_gradients(grads: Sequence[torch.Tensor], dp: DataParallel,
-                      bucket_bytes: int = BUCKET_BYTES
+def average_gradients(grads: Sequence[torch.Tensor], dp: DataParallel
                       ) -> Tuple[torch.Tensor, ...]:
     """The mean over the ranks of each gradient, all-reduced in flat
-    buckets; every rank gets the same bytes."""
+    buckets of at most ``BUCKET_BYTES``; every rank gets the same
+    bytes."""
     out: List[Optional[torch.Tensor]] = [None] * len(grads)
-    for run in _buckets(grads, bucket_bytes):
+    for run in _buckets(grads, BUCKET_BYTES):
         flat = torch.cat([grads[i].reshape(-1) for i in run])
-        dist.all_reduce(flat, group=dp.group)
+        dist.all_reduce(flat)
         flat.div_(dp.world_size)
         for i, part in zip(run, flat.split([grads[i].numel()
                                             for i in run])):
@@ -212,11 +210,11 @@ def average_gradients(grads: Sequence[torch.Tensor], dp: DataParallel,
     return tuple(out)
 
 
-def broadcast_module(module: torch.nn.Module, dp: DataParallel) -> None:
+def broadcast_module(module: torch.nn.Module) -> None:
     """Rank 0's parameters and buffers, in place on every rank."""
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
-            dist.broadcast(t.data, src=0, group=dp.group)
+            dist.broadcast(t.data, src=0)
 
 
 def barrier(dp: DataParallel) -> None:

@@ -132,7 +132,7 @@ def init_train_state(settings: Settings, models: ModelBundle,
     modules = [m for m in (models.d, models.g, models.dnn) if m is not None]
     if dp is not None:
         for module in modules:
-            broadcast_module(module, dp)
+            broadcast_module(module)
     return SRGANTrainState(
         step=0,
         d=models.d, d_opt=make_optimizer(settings, models.d.parameters(),

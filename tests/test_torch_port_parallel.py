@@ -72,6 +72,10 @@ CROWD = dict(batch_size=B_CROWD, image_patch_size=P, model_base_width=8,
 WINDOW = dict(CROWD, labeled_dataset_size=13, unlabeled_dataset_size=11,
               crowd_hbm_window=8, crowd_window_slices=2,
               crowd_window_refresh_period=1)
+# The host tier on the replicated split, and the resident tier it is held
+# to.
+RESIDENT = dict(CROWD, crowd_shard_dataset=False)
+HOST = dict(RESIDENT, crowd_host_pipeline=True, number_of_data_workers=1)
 NORMS = ("xla", "pallas")
 ranks = functools.partial(launch.launch, timeout_s=JOIN_S,
                           collective_timeout_s=COLLECTIVE_S, threads=1)
@@ -213,6 +217,7 @@ def runs(tmp_path_factory):
             cases["crowd-xla"]["weights"]))),
         ("samples", ("sharded_samples", (CROWD, 2, 200))),
         ("window", ("window_refreshes", (WINDOW, 5))),
+        ("host", ("host_tier_batches", (HOST, 2))),
         ("window-opportunistic", ("window_refreshes", (dict(
             WINDOW, crowd_window_refresh_period=0), 5))),
     ]
@@ -529,7 +534,73 @@ def test_opportunistic_windows_move_together(two_ranks):
         np.testing.assert_array_equal(x, y)
 
 
+def test_the_host_tier_gathers_each_ranks_share(two_ranks):
+    """Two ranks on the host tier open the three native readers and no
+    prefetcher; each rank's batch of each epoch is its share of the
+    global draws, cut as the one-rank resident tier cuts them."""
+    want = workers.sharded_samples(None, RESIDENT, 2, 1)["samples"]
+    half = B_CROWD // 2
+    for r in range(2):
+        got = two_ranks[r]["host"]
+        assert got["host_io"] == 3
+        rows = slice(r * half, (r + 1) * half)
+        for epoch, (ours, (_, *theirs)) in enumerate(zip(got["batches"],
+                                                         want)):
+            images, labels, unlabeled = ours
+            assert images.dtype == unlabeled.dtype == np.uint8
+            for name, a, b in (
+                    ("images", images.astype(np.float32) * (2 / 255) - 1,
+                     theirs[0]),
+                    ("labels", labels, theirs[1]),
+                    ("unlabeled",
+                     unlabeled.astype(np.float32) * (2 / 255) - 1,
+                     theirs[2])):
+                np.testing.assert_allclose(
+                    a, b[rows], rtol=0, atol=1e-6,
+                    err_msg=f"rank {r}, epoch {epoch}, {name}")
+
+
 # --------------------------------------------------- entry and launcher
+@pytest.fixture
+def bounded_train(monkeypatch, tmp_path):
+    """``Experiment.train()``'s spawned ranks under this file's time
+    limits, one thread each, their store under ``tmp_path``."""
+    monkeypatch.setattr(launch, "run_experiment", functools.partial(
+        launch.run_experiment, timeout_s=JOIN_S,
+        collective_timeout_s=COLLECTIVE_S, threads=1,
+        directory=str(tmp_path / "ranks")))
+
+
+def test_train_without_a_group_spawns_the_ranks(tmp_path, bounded_train):
+    """``CoefficientExperiment(Settings(data_parallel_devices=2),
+    device="cpu").train()`` trains on two spawned ranks and restores
+    rank 0's last checkpoint here: the models of the launcher's own
+    2-rank run, bit for bit."""
+    settings = Settings(**dict(COEF, data_parallel_devices=2,
+                               steps_to_run=2, seed=1,
+                               logs_directory=str(tmp_path / "logs")))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        launched = pool.submit(
+            launch.run_experiment, CoefficientExperiment, settings,
+            ["cpu"] * 2, action=workers.trained_models,
+            trial_directory=str(tmp_path / "launched"),
+            directory=str(tmp_path / "launched_ranks"))
+        experiment = CoefficientExperiment(settings, device="cpu")
+        state = experiment.train()
+        want = launched.result()[0]
+    assert state.step == 2
+    assert os.listdir(tmp_path / "logs") == [
+        os.path.basename(experiment.trial_directory)]
+    assert os.listdir(os.path.join(experiment.trial_directory,
+                                   "checkpoints")) == ["step_2"]
+    for name in ("d", "g", "dnn"):
+        ours = getattr(state, name).state_dict()
+        for k, v in want[name].items():
+            assert torch.equal(ours[k], v), (name, k)
+    experiment.close()
+
+
+
 def test_a_batch_that_does_not_divide_raises():
     settings = Settings(**dict(COEF, batch_size=5, data_parallel_devices=2))
     with pytest.raises(ValueError, match="batch_size 5 must be divisible "
@@ -585,16 +656,12 @@ def _scalars(trial, writer):
         return [json.loads(line) for line in f]
 
 
-def test_the_command_line_on_two_ranks(tmp_path, capsys, monkeypatch):
+def test_the_command_line_on_two_ranks(tmp_path, capsys, bounded_train):
     """``python -m srgan_tpu_torch coefficient --device cpu
     --data_parallel_devices 2``: one trial directory, every scalar
     written once (rank 0 alone writes), the checkpoint of step 2, the
     JSON line of the one-rank run; resumed on one rank, the run goes on
     as the one-rank run's resume does."""
-    monkeypatch.setattr(cli, "run_experiment", functools.partial(
-        launch.run_experiment, timeout_s=JOIN_S,
-        collective_timeout_s=COLLECTIVE_S, threads=1,
-        directory=str(tmp_path / "ranks")))
     flags = ["coefficient", "--device", "cpu", "--steps_to_run", "2",
              "--summary_step_period", "1", "--seed", "1"]
     for key, value in COEF.items():

@@ -151,6 +151,23 @@ def sharded_samples(dp, settings_kw, steps, draws_checked):
             "unlabeled_idx": np.stack([a[4] for a in indices])}
 
 
+def host_tier_batches(dp, settings_kw, epochs):
+    """The crowd app's host tier on this rank: the first batch of each of
+    ``epochs`` epochs (uint8 images NHWC, labels, uint8 unlabeled NHWC)
+    and the number of native readers and prefetchers it opened."""
+    exp = CrowdExperiment(Settings(**settings_kw), device="cpu",
+                          data_parallel=dp)
+    exp.dataset_setup()
+    exp.prepare_train_step()
+    try:
+        iterators = exp.epoch_batch_iterators()
+        batches = [tuple(t.numpy() for t in next(next(iterators)))
+                   for _ in range(epochs)]
+        return {"batches": batches, "host_io": len(exp._host_io)}
+    finally:
+        exp.close()
+
+
 def window_refreshes(dp, settings_kw, steps):
     """The crowd app's windows on this rank refreshed at steps
     ``0..steps-1``: each window's global and local ids and this rank's
