@@ -125,13 +125,34 @@ Phases, each of which fails the run if it fails:
              launches asserted (3 sampler and 30/25 norm launches a step,
              a validation pass's as in phase 5), rank 0 alone writing;
              per rank the ms/step, the peak allocated memory and the
-             gradient all-reduce's host ms a step.
+             gradient all-reduce's host ms a step;
+14. dispatch — ``steps_per_dispatch`` (K steps a CUDA graph replay): (a)
+             at a tiny float32 size (base width 16, batch 8), under
+             "xla" and under "pallas" with the rescale sampler, 3 chunks
+             of 4 (eager, capture and replay, replay) and one eager step
+             held bit for bit to 13 single eager steps (metrics, models,
+             Adam's state, the generator; tolerance 0), the two
+             replays' z_d shown to differ; (b) the flagship "pallas"
+             config through ``CrowdExperiment.train()`` at K = 2 and 4,
+             with the window tier at K = 2 and on a world of 1 over NCCL
+             at K = 2, 8 steps with validation every 4: losses finite
+             at the chunks' first steps, validation finite, each
+             kernel's launches K steps' a chunk, one capture and a
+             replay a later chunk, the last chunk (a replay) traced and
+             its kernels counted by name against the counters (exactly
+             in the world of 1's fresh rank process: CUPTI drops records
+             in a process after several profiler sessions); (c) K =
+             1, 2 and 4 at the flagship and at a small config (batch 8,
+             64-px patches, base width 16): ms/step, images/s, the
+             host's ms a call, the card's busy share under the profiler,
+             the peak allocated, the first chunk's and the capture's
+             wall ms.
 
 Prints the kernel table as one JSON line (each kernel's launches counted
 on the path that runs it: the training kernels in the rescale run of
 phase 5, the density kernel in phase 7, the copy kernel in phase 9;
-phases 4, 10, 11, 12 and 13 count the launches of each run they drive and
-assert them),
+phases 4, 10, 11, 12, 13 and 14 count the launches of each run they
+drive and assert them),
 then the card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": ...}``.
 Exits nonzero, printing no result, without a CUDA card or outside a
@@ -2423,6 +2444,397 @@ def dp_main_path(dev, logs: str, card: str, pallas_ms: float) -> dict:
     return out
 
 
+# Phase 14, steps_per_dispatch. (a) A tiny float32 config on the card, at
+# base width 16 and batch 8: DISPATCH_CHUNKS chunks of DISPATCH_K steps
+# (eager, capture and replay, replay) and one eager step, against single
+# eager steps from the same state, arguments and generator seed. cuDNN's
+# deterministic algorithms in both runs, so that bit-equality is the
+# expected result (the tolerance: 0). The first step of a configuration in
+# a process may take another path than every later one (at K = 1, without
+# a graph: 1 ulp in D's first weight gradient under "xla"), so a
+# throwaway step of the configuration runs before both compared runs.
+DISPATCH_K = 4
+DISPATCH_CHUNKS = 3
+DISPATCH_TINY = dict(TINY, batch_size=8, model_base_width=16, mean_offset=0.5,
+                     steps_per_dispatch=DISPATCH_K)
+# (b) train() at the flagship "pallas" config: K = 2 and 4, K = 2 with the
+# window tier (phase 12's window: refresh period 2), and K = 2 on a world
+# of 1 over NCCL; the last chunk traced (profile_step_range).
+DISPATCH_WINDOW = dict(CROWD_TIER_RUNS)["window"]
+DISPATCH_RUNS = [("K=2", dict(steps_per_dispatch=2)),
+                 ("K=4", dict(steps_per_dispatch=4)),
+                 ("window, K=2", dict(DISPATCH_WINDOW, steps_per_dispatch=2))]
+# (c) TIMED_STEPS steps at K = 1, 2 and 4 in the flagship "pallas" config
+# and a small one whose step the host paces (batch 8, 64-px patches, base
+# width 16, bfloat16).
+DISPATCH_KS = (1, 2, 4)
+DISPATCH_SMALL = dict(batch_size=8, image_patch_size=64, model_base_width=16)
+# Kernel names in a Chrome trace (csrc/patches.cu, csrc/fused_norm.cu).
+TRACE_KERNELS = {"extract_patches": "::sampler_kernel<",
+                 "group_norm_act_fwd": "::fwd_kernel<",
+                 "group_norm_act_bwd": "::bwd_kernel<"}
+
+
+def _manual_crowd(settings, dev):
+    """A crowd experiment ready to step, without train(): data, models,
+    the state and the input pipeline (and the chunk when K > 1)."""
+    from srgan_tpu_torch import CrowdExperiment
+    from srgan_tpu_torch.train import init_train_state
+    exp = CrowdExperiment(settings, device=dev)
+    exp.dataset_setup()
+    exp.models = exp.model_setup()
+    exp.state = init_train_state(settings, exp.models)
+    exp.prepare_train_step()
+    return exp
+
+
+def _single_step(exp, args):
+    data = exp._device_data
+    batch = exp._sample_batch(data["labeled_images"], data["labeled_density"],
+                              data["unlabeled_images"], *next(args))
+    exp.state, metrics = exp._train_step(exp.state, *batch, exp._rng)
+    return metrics
+
+
+def _trained_state(exp):
+    """{name: tensor} of the models' state and Adam's state, on the host."""
+    out = {}
+    for name in ("d", "g", "dnn"):
+        for k, v in getattr(exp.state, name).state_dict().items():
+            out[f"{name}.{k}"] = v.detach().cpu()
+        opt = getattr(exp.state, f"{name}_opt")
+        for i, p in enumerate(opt.params):
+            for k, v in opt.adam.state[p].items():
+                out[f"{name}_opt.{i}.{k}"] = v.detach().cpu()
+    return out
+
+
+def dispatch_correctness(dev, norm_impl, factors=()) -> dict:
+    """Phase 14 (a): chunks of ``DISPATCH_K`` steps (eager, capture and
+    replay, replay) and one eager step against single eager steps from the
+    same state, arguments and generator seed: every step's metrics, the
+    final models and Adam's state, and the generator, bit for bit; the
+    z_d each replay drew (read off a copy of the generator at its start)
+    differ; one capture and two replays."""
+    from srgan_tpu_torch import Settings
+    from srgan_tpu_torch.train import set_float32_precision
+    from srgan_tpu_torch.utils.cuda_graph import TrainChunk
+    from srgan_tpu_torch.utils.mixture import sample_offset_normal
+    set_float32_precision()
+    settings = Settings(norm_impl=norm_impl, crowd_rescale_factors=factors,
+                        **DISPATCH_TINY)
+    what = f"{norm_impl}{', rescale' if factors else ''}"
+    k = DISPATCH_K
+    steps = k * DISPATCH_CHUNKS + 1
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        warm = _manual_crowd(settings, dev)
+        _single_step(warm, warm._patch_args_stream())
+        warm.close()
+        ref = _manual_crowd(settings, dev)
+        args = ref._patch_args_stream()
+        want = [{n: v.cpu() for n, v in _single_step(ref, args).items()}
+                for _ in range(steps)]
+        exp = _manual_crowd(settings, dev)
+        args = exp._patch_args_stream()
+        counts = (TrainChunk.captures, TrainChunk.replays)
+        got, z = [], []
+        shape = (settings.batch_size, settings.latent_dimension)
+        for _ in range(DISPATCH_CHUNKS):
+            probe = torch.Generator(dev)
+            probe.set_state(exp._rng.get_state())
+            z.append(sample_offset_normal(probe, shape, settings.mean_offset))
+            metrics = exp.dispatch_chunk(args)
+            got += [{n: v[i].cpu() for n, v in metrics.items()}
+                    for i in range(k)]
+        got.append({n: v.cpu() for n, v in _single_step(exp, args).items()})
+        torch.cuda.synchronize()
+        counts = (TrainChunk.captures - counts[0],
+                  TrainChunk.replays - counts[1])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if counts != (1, DISPATCH_CHUNKS - 1):
+        raise AssertionError(f"dispatch (a) {what}: (captures, replays) "
+                             f"{counts}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        for name, v in b.items():
+            worst = max(worst, float((a[name] - v).abs()))
+            if not torch.equal(a[name], v):
+                raise AssertionError(
+                    f"dispatch (a) {what}: step {i} {name} {float(a[name])}"
+                    f" in chunks, {float(v)} in single steps")
+    mine, theirs = _trained_state(exp), _trained_state(ref)
+    state_err = max(float((mine[n].float() - v.float()).abs().max())
+                    for n, v in theirs.items())
+    differ = [n for n, v in theirs.items() if not torch.equal(mine[n], v)]
+    if differ or set(mine) != set(theirs):
+        raise AssertionError(f"dispatch (a) {what}: {len(differ)} state "
+                             f"tensors differ, first {differ[:4]}")
+    if not torch.equal(exp._rng.get_state(), ref._rng.get_state()):
+        raise AssertionError(f"dispatch (a) {what}: the generators differ")
+    z_step = float((z[2] - z[1]).abs().max())
+    if not z_step > 0:
+        raise AssertionError(f"dispatch (a) {what}: the replays drew the "
+                             f"same z_d")
+    log(f"dispatch (a), {what}, float32, K={k}: {DISPATCH_CHUNKS} chunks "
+        f"(eager, capture + replay, replay) and one eager step against "
+        f"{steps} single eager steps: every metric, {len(theirs)} model "
+        f"and Adam tensors and the generator bit-equal (tolerance 0; "
+        f"largest difference: metrics {worst:g}, state {state_err:g}); "
+        f"captures {counts[0]}, replays {counts[1]}; the two replays' z_d "
+        f"differ by up to {z_step:.4f}")
+    for e in (exp, ref):
+        e.close()
+    return {"metrics_max_diff": worst, "state_max_diff": state_err,
+            "replay_z_max_diff": z_step}
+
+
+def dispatch_action(experiment) -> dict:
+    """A run of phase 14 (b) (a rank's, or this process's): ``train()``
+    with the kernels' launches and the chunk's captures and replays
+    counted, zeroed just before."""
+    from srgan_tpu_torch.utils.cuda_graph import TrainChunk
+    counters = _launch_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    TrainChunk.captures = TrainChunk.replays = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = experiment.train()
+    torch.cuda.synchronize()
+    return {"launches": {k: c.launches for k, c in counters.items()},
+            "captures": TrainChunk.captures, "replays": TrainChunk.replays,
+            "step": state.step, "seconds": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _trace_kernels(path: str) -> dict:
+    """Launches of the samplers and the norm kernels in a Chrome trace, by
+    kernel table name (the fixed and rescale samplers are one kernel)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {kernel: sum(marker in n for n in names)
+            for kernel, marker in TRACE_KERNELS.items()}
+
+
+def dispatch_train_main_path(name, settings, dev, card: str,
+                             world: bool = False) -> dict:
+    """Phase 14 (b), one run: ``CrowdExperiment(settings, device="cuda")
+    .train()`` (``world``: on a world of 1 over NCCL through the
+    launcher) at K = ``steps_per_dispatch``, ``STEPS`` steps with
+    validation every ``VALIDATION_PERIOD``: the losses finite and written
+    at the chunks' first steps, the validation scalars finite, each
+    kernel launched K times a step's count a chunk (and a validation
+    pass's), one capture and a replay for every chunk after the first
+    two; the last chunk, a replay, traced under ``torch.profiler``, its
+    kernels counted by name against K times a step's."""
+    from srgan_tpu_torch import CrowdExperiment
+    from srgan_tpu_torch.parallel.launch import run_experiment
+    from srgan_tpu_torch.utils.summary import make_trial_directory
+    gc.collect()
+    torch.cuda.empty_cache()
+    k = settings.steps_per_dispatch
+    steps = settings.steps_to_run
+    if world:
+        trial = make_trial_directory(settings)
+        (got,) = run_experiment(CrowdExperiment, settings, [dev],
+                                action=dispatch_action,
+                                trial_directory=trial, timeout_s=DP_JOIN_S)
+    else:
+        exp = CrowdExperiment(settings, device=dev)
+        got = dispatch_action(exp)
+        trial = exp.trial_directory
+        if settings.crowd_hbm_window:
+            _check_window(exp, settings, steps)
+        del exp
+    rescale = bool(settings.crowd_rescale_factors)
+    per_step = {"extract_patches": 0 if rescale else 3,
+                "extract_rescaled_patches": 3 if rescale else 0,
+                "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+    _dp_launches(got["launches"], per_step, steps, steps // VALIDATION_PERIOD,
+                 f"dispatch (b) {name}")
+    if got["step"] != steps or (got["captures"], got["replays"]) != (
+            1, steps // k - 1):
+        raise AssertionError(f"dispatch (b) {name}: step {got['step']}, "
+                             f"(captures, replays) ({got['captures']}, "
+                             f"{got['replays']})")
+    scalars = read_scalars(trial)
+    for step in range(steps):
+        values = {t: v for sub in ("GAN", "DNN")
+                  for t, v in scalars[sub].get(step, {}).items()
+                  if not t.startswith("validation/")}
+        if len(values) != (7 if step % k == 0 else 0) or not all(
+                map(math.isfinite, values.values())):
+            raise AssertionError(f"dispatch (b) {name}: step {step}'s "
+                                 f"summaries {values}")
+    check_validation(trial, range(VALIDATION_PERIOD, steps + 1,
+                                  VALIDATION_PERIOD))
+    start, end = settings.profile_step_range
+    traced = _trace_kernels(os.path.join(trial, "profile",
+                                         f"steps_{start}_{end}.json"))
+    want = {"extract_patches": k * 3, "group_norm_act_fwd": k * per_step[
+        "group_norm_act_fwd"], "group_norm_act_bwd": k * per_step[
+        "group_norm_act_bwd"]}
+    # CUPTI drops kernel records, at a replay's start or in its middle,
+    # once a process has run several profiler sessions (seen from the
+    # seventh on): the world of 1's rank, a fresh process, is held to the
+    # counters exactly; a trace never shows more than they count.
+    if (traced != want if world
+            else any(traced[k] > v for k, v in want.items())):
+        raise AssertionError(f"dispatch (b) {name}: the traced replay ran "
+                             f"{traced}, the counters say {want}")
+    log(f"dispatch (b), {name}{' on a world of 1 over NCCL' if world else ''}"
+        f": {steps} steps and {steps // VALIDATION_PERIOD} validation passes"
+        f" through train() in {got['seconds']:.1f} s, kernel launches "
+        f"{json.dumps(got['launches'])} ({k} steps' a chunk), captures "
+        f"{got['captures']}, replays {got['replays']}, summaries at steps "
+        f"{sorted(s for s, v in scalars['GAN'].items() if 'g_loss' in v)}, "
+        f"peak allocated {got['peak_gib']:.2f} GiB; the traced replay "
+        f"(steps {start}-{end - 1}) ran {json.dumps(traced)} by name, the "
+        f"counters {json.dumps(want)}"
+        f"{' (held exactly: a fresh process)' if world else ''} "
+        f"({dev}: {card})")
+    return dict(got, traced=traced)
+
+
+def _busy(prof) -> tuple:
+    """(busy ms, span ms) of the card under ``prof``: the union of its
+    operations' intervals (kernels, copies, sets; cuDNN's side streams
+    overlap, so a sum would count some twice), and the span from the
+    first operation's start to the last one's end."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, (end - spans[0][0]) / 1e3
+
+
+def dispatch_timed(name, settings, dev, card: str) -> dict:
+    """Phase 14 (c), one run: ``TIMED_STEPS`` steps at K =
+    ``steps_per_dispatch`` between synchronizations (K = 1: single steps),
+    after the first chunk (timed: the eager warm-up), the second (the
+    capture, timed alone, and its replay) and two more; the host's ms a
+    chunk call; then ``PROFILED_STEPS`` or more steps, whole chunks, under
+    ``torch.profiler``: the card's busy share (``_busy``); the peak
+    allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k = settings.steps_per_dispatch
+    exp = _manual_crowd(settings, dev)
+    args = exp._patch_args_stream()
+    capture_s = []
+    if k > 1:
+        chunk = exp._train_chunk
+        real_capture = chunk._capture
+
+        def timed_capture():
+            t0 = time.perf_counter()
+            graph = real_capture()
+            torch.cuda.synchronize()
+            capture_s.append(time.perf_counter() - t0)
+            return graph
+
+        chunk._capture = timed_capture
+        advance = functools.partial(exp.dispatch_chunk, args)
+    else:
+        advance = functools.partial(_single_step, exp, args)
+
+    def synchronized():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    first_ms = synchronized()
+    second_ms = synchronized()
+    for _ in range(2):
+        advance()
+    torch.cuda.synchronize()
+    calls = TIMED_STEPS // k
+    host = 0.0
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        t1 = time.perf_counter()
+        metrics = advance()
+        host += time.perf_counter() - t1
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    if not all(bool(torch.isfinite(v).all()) for v in metrics.values()):
+        raise AssertionError(f"dispatch (c) {name}: losses {metrics}")
+    profiled = -(-PROFILED_STEPS // k)
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(profiled):
+            advance()
+        torch.cuda.synchronize()
+    busy_ms, span_ms = _busy(prof)
+    out = {"ms_per_step": 1e3 * elapsed / TIMED_STEPS,
+           "images_per_s": settings.batch_size * TIMED_STEPS / elapsed,
+           "host_ms_per_call": 1e3 * host / calls,
+           "busy_ms_per_step": busy_ms / (profiled * k),
+           "busy": busy_ms / span_ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "first_chunk_ms": first_ms, "second_chunk_ms": second_ms,
+           "capture_ms": 1e3 * capture_s[0] if capture_s else None}
+    log(f"dispatch (c), {name}, K={k}: {out['ms_per_step']:.3f} ms/step, "
+        f"{out['images_per_s']:.1f} images/s (batch {settings.batch_size}, "
+        f"{TIMED_STEPS} steps), host {out['host_ms_per_call']:.3f} ms a "
+        f"{'chunk' if k > 1 else 'step'} call; under torch.profiler "
+        f"({profiled * k} steps) the card is busy "
+        f"{out['busy_ms_per_step']:.3f} ms a step, {100 * out['busy']:.1f}% "
+        f"of the span from its first operation to its last; peak allocated "
+        f"{out['peak_gib']:.2f} GiB; first {'chunk' if k > 1 else 'step'} "
+        f"{first_ms:.1f} ms, second {second_ms:.1f} ms"
+        + (f" (its capture {out['capture_ms']:.1f} ms)" if capture_s else "")
+        + f" ({dev}: {card})")
+    exp.close()
+    del exp, metrics, advance
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dispatch_main_path(dev, logs: str, card: str) -> dict:
+    """Phase 14: ``steps_per_dispatch`` (a) held bit for bit to single
+    steps on a tiny float32 config, (b) through ``train()`` at the
+    flagship widths, (c) timed at K = 1, 2 and 4."""
+    from srgan_tpu_torch import Settings
+    out = {"correctness": {
+        "xla": dispatch_correctness(dev, "xla"),
+        "pallas, rescale": dispatch_correctness(dev, "pallas", RESCALE)}}
+    base = dict(FLAGSHIP, logs_directory=logs, norm_impl="pallas",
+                steps_to_run=STEPS, validation_step_period=VALIDATION_PERIOD)
+    runs = [(name, over, False) for name, over in DISPATCH_RUNS]
+    runs.append(("world of 1, K=2", dict(steps_per_dispatch=2), True))
+    out["train"] = {}
+    for name, over, world in runs:
+        k = over["steps_per_dispatch"]
+        settings = Settings(**dict(
+            base, trial_name=f"chip_smoke_dispatch_k{k}",
+            summary_step_period=k, profile_step_range=(STEPS - k, STEPS),
+            **over))
+        out["train"][name] = dispatch_train_main_path(name, settings, dev,
+                                                      card, world)
+    out["time"] = {}
+    for config, over in (("flagship", {}), ("small", DISPATCH_SMALL)):
+        for k in DISPATCH_KS:
+            settings = Settings(**dict(base, steps_per_dispatch=k, **over))
+            out["time"][f"{config}, K={k}"] = dispatch_timed(
+                config, settings, dev, card)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2549,6 +2961,10 @@ def main() -> int:
     parallel = dp_main_path(dev, os.path.join(logs, "parallel"), smi,
                             step_ms["pallas", ()])
     log("data parallel: " + json.dumps(parallel))
+
+    # 14. steps_per_dispatch: K steps a CUDA graph replay
+    dispatch = dispatch_main_path(dev, os.path.join(logs, "dispatch"), smi)
+    log("dispatch: " + json.dumps(dispatch))
 
     for entry in entries[:-1]:
         entry["launches"] = launches[entry["name"]]

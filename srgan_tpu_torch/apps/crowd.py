@@ -42,6 +42,16 @@ of the split cyclically padded to a multiple of the ranks (or its rows
 of a sharded window), samples it with LOCAL indices, and never draws a
 padded duplicate (per-position bounds, :func:`shard_local_counts`).
 Grid evaluation splits each chunk of images over the ranks.
+
+``steps_per_dispatch = K > 1`` (the resident and window tiers only, as in
+JAX): the loop takes K steps a dispatch (:meth:`_chunked_training_loop`),
+each chunk K (sample + step) iterations on K steps of the same
+patch-argument stream and train generator that K single steps consume.
+On the card a chunk is one CUDA graph replay (``utils/cuda_graph.py``);
+on the CPU it is the K steps in a loop. The G update's period is decided
+on the host, so a chunk's graph is keyed by the phase ``step % period``
+at which it starts (one graph a phase that a chunk meets; one in all for
+the default period of 1).
 """
 
 from __future__ import annotations
@@ -61,7 +71,7 @@ from srgan_tpu_torch.apps.common import write_generated_sample_grid
 from srgan_tpu_torch.data.core import prefetch_to_device
 from srgan_tpu_torch.data.crowd import CrowdDatabase, synthetic_crowd_database
 from srgan_tpu_torch.data.window import HBMWindow
-from srgan_tpu_torch.experiment import Experiment
+from srgan_tpu_torch.experiment import Experiment, check_finite
 from srgan_tpu_torch.models.crowd import (CROWD_MODELS, CrowdDCGenerator,
                                           SpatialPyramidCNN)
 from srgan_tpu_torch.ops.patches import (extract_patches,
@@ -69,6 +79,7 @@ from srgan_tpu_torch.ops.patches import (extract_patches,
 from srgan_tpu_torch.parallel.mesh import (all_ranks_agree, data_axis_size,
                                            gather_rows)
 from srgan_tpu_torch.train import ModelBundle
+from srgan_tpu_torch.utils.cuda_graph import TrainChunk
 from srgan_tpu_torch.utils.seeding import generator_for
 
 DENSITY_DOWNSAMPLE = 4  # the crowd models' heads emit 1/4-resolution maps
@@ -135,6 +146,8 @@ class CrowdExperiment(Experiment):
         self._host_io: list = []  # the host tier's readers and prefetchers
         # Grid evaluators by _grid_fn_key, built at first use.
         self._grid_count_fns: Dict[tuple, object] = {}
+        # steps_per_dispatch > 1: chunk(args [K, A], key) -> metrics [K].
+        self._train_chunk = None
 
     # ------------------------------------------------------------ datasets
     def _load_databases(self) -> Tuple[CrowdDatabase, CrowdDatabase,
@@ -324,6 +337,13 @@ class CrowdExperiment(Experiment):
         settings = self.settings
         dp = self.data_parallel
         sharded = self._shard_dataset
+        period = settings.crowd_window_refresh_period
+        if (period > 0 and settings.steps_per_dispatch > 1
+                and period % settings.steps_per_dispatch):
+            raise ValueError(
+                f"crowd_window_refresh_period={period} must be a multiple "
+                f"of steps_per_dispatch={settings.steps_per_dispatch} "
+                f"(refreshes happen at chunk boundaries)")
         # [seed, stream, start] as the other data streams: distinct
         # streams for the labeled and unlabeled windows (equal-sized
         # splits would rotate in lockstep), a fresh order on resume.
@@ -355,6 +375,7 @@ class CrowdExperiment(Experiment):
         try:
             self._close_inputs()
         finally:
+            self._train_chunk = None  # its graphs' memory
             super().close()
 
     def _upload_databases(self) -> None:
@@ -677,28 +698,46 @@ class CrowdExperiment(Experiment):
                     f"{max(self.settings.crowd_rescale_factors)}) "
                     f"exceeds the smallest image dimension {limit}; "
                     f"reduce the factors or use larger images")
+        self._train_chunk = None
+        if self.settings.steps_per_dispatch > 1 and not self._evaluation_only:
+            self._prepare_train_chunk()
+
+    @staticmethod
+    def _flat_args(arrays) -> np.ndarray:
+        """A step's patch arguments as one int32 row."""
+        return np.concatenate([a.ravel() for a in arrays]).astype(np.int32)
+
+    @staticmethod
+    def _split_args(flat: torch.Tensor, shapes) -> List[torch.Tensor]:
+        """The arrays of shapes ``shapes`` that ``flat`` holds, as views."""
+        parts = torch.split(flat, [int(np.prod(s)) for s in shapes])
+        return [t.view(s) for t, s in zip(parts, shapes)]
 
     def _to_device(self, *arrays: np.ndarray):
         """One host→device copy for all of a step's small int32 arrays,
         from pinned memory so that it does not wait for the device."""
-        flat = torch.from_numpy(np.concatenate(
-            [a.ravel() for a in arrays]).astype(np.int32))
+        flat = torch.from_numpy(self._flat_args(arrays))
         if self.device.type == "cuda":
             flat = flat.pin_memory().to(self.device, non_blocking=True)
-        parts = torch.split(flat, [a.size for a in arrays])
-        return [t.view(a.shape) for t, a in zip(parts, arrays)]
+        return self._split_args(flat, [a.shape for a in arrays])
 
     def _sample_batch(self, labeled_images, labeled_density,
-                      unlabeled_images, idx, offs, flips, sidx, uidx, uoffs,
-                      uflips, usidx):
-        """Three patch-kernel calls: labeled images and their labels
-        (same windows; with rescale, mass-preserving), and unlabeled
-        images. Returns NCHW image patches (channels_last memory) and
-        [B, P, P] density labels, or [B, P, P, 2] with an aux target."""
+                      unlabeled_images, *args: np.ndarray):
+        """Three patch-kernel calls on a step's host draws (the 8 arrays
+        of :meth:`_patch_args_stream`): see :meth:`_sample_patches`."""
+        return self._sample_patches(labeled_images, labeled_density,
+                                    unlabeled_images, *self._to_device(*args))
+
+    def _sample_patches(self, labeled_images, labeled_density,
+                        unlabeled_images, idx, offs, flips, sidx, uidx,
+                        uoffs, uflips, usidx):
+        """Three patch-kernel calls on the arguments on the device:
+        labeled images and their labels (same windows; with rescale,
+        mass-preserving), and unlabeled images. Returns NCHW image patches
+        (channels_last memory) and [B, P, P] density labels, or
+        [B, P, P, 2] with an aux target."""
         p = self.settings.image_patch_size
         windows = self._rescale_windows
-        idx, offs, flips, sidx, uidx, uoffs, uflips, usidx = self._to_device(
-            idx, offs, flips, sidx, uidx, uoffs, uflips, usidx)
         image = dict(patch_size=p, scale=2.0 / 255.0, shift=-1.0)
         if windows:
             patches = extract_rescaled_patches(
@@ -788,6 +827,174 @@ class CrowdExperiment(Experiment):
 
         while True:
             yield one_epoch()
+
+    # ------------------------------------------------ chunked dispatch loop
+    def _prepare_train_chunk(self) -> None:
+        """The K-step chunk (``Settings.steps_per_dispatch``): K (sample +
+        fused step) iterations, one CUDA graph replay on the card
+        (:class:`TrainChunk`), the K steps in a loop on the CPU. It
+        consumes the patch-argument rows and the train generator's draws
+        in the order K single steps do, so K never changes the data or
+        the draws. JAX's refusals, with its messages; on the card also
+        what a graph cannot capture: a gloo group (its collectives run
+        through the host) and ``debug_nans`` (anomaly mode
+        synchronizes)."""
+        settings = self.settings
+        if settings.crowd_host_pipeline:
+            raise ValueError(
+                "steps_per_dispatch > 1 requires the HBM-resident input "
+                "path (crowd_host_pipeline streams host batches one step "
+                "at a time)")
+        if settings.dnn_only:
+            raise ValueError(
+                "steps_per_dispatch > 1 supports the fused GAN step only; "
+                "dnn_only trials dispatch per step")
+        if settings.model_parallel_devices > 1:
+            raise ValueError(
+                "steps_per_dispatch > 1 is not supported with "
+                "model_parallel_devices > 1 (the chunk program replicates "
+                "the train state; use per-step dispatch under tp)")
+        if self.device.type != "cuda":
+            self._train_chunk = self._loop_chunk
+            return
+        if (self.data_parallel is not None
+                and torch.distributed.get_backend() == "gloo"):
+            raise ValueError(
+                "steps_per_dispatch > 1 on a CUDA card needs NCCL: gloo's "
+                "collectives (two ranks on one card) run through the host "
+                "and cannot be captured in a CUDA graph; use "
+                "steps_per_dispatch=1")
+        if settings.debug_nans:
+            raise ValueError(
+                "steps_per_dispatch > 1 with debug_nans runs on the CPU "
+                "only: anomaly mode synchronizes, which a CUDA graph "
+                "cannot capture; use steps_per_dispatch=1 to debug on the "
+                "card")
+        width = sum(int(np.prod(s)) for s in self._patch_arg_shapes())
+        self._train_chunk = TrainChunk(
+            self._run_chunk_steps, settings.steps_per_dispatch, width,
+            self.device, self._rng)
+
+    def _patch_arg_shapes(self) -> List[Tuple[int, ...]]:
+        """The shapes of a step's 8 patch-argument arrays on this rank."""
+        n = self.settings.batch_size // data_axis_size(self.data_parallel)
+        return [(n,), (n, 2), (n,), (n,)] * 2
+
+    def _run_chunk_steps(self, args: torch.Tensor, draws=None
+                         ) -> Dict[str, torch.Tensor]:
+        """K (sample + step) iterations on the rows of ``args`` [K, A]
+        (each a step's :meth:`_flat_args`, on the device); the metrics
+        stacked, [K] each. ``draws``, a test's: K dicts of z_d, z_g and α
+        to feed the steps in place of the generator's."""
+        data = self._device_data
+        shapes = self._patch_arg_shapes()
+        per_step = []
+        for i, row in enumerate(args):
+            batch = self._sample_patches(
+                data["labeled_images"], data["labeled_density"],
+                data["unlabeled_images"], *self._split_args(row, shapes))
+            self.state, metrics = self._train_step(
+                self.state, *batch, self._rng, **(draws[i] if draws else {}))
+            per_step.append(metrics)
+        return {k: torch.stack([m[k] for m in per_step])
+                for k in per_step[0]}
+
+    def _loop_chunk(self, args: np.ndarray, key=0
+                    ) -> Dict[str, torch.Tensor]:
+        """The chunk off the card: the K steps in a loop."""
+        return self._run_chunk_steps(torch.from_numpy(args))
+
+    def dispatch_chunk(self, args) -> Dict[str, torch.Tensor]:
+        """One chunk on the next K steps' draws of the patch-argument
+        stream ``args`` (:meth:`_patch_args_stream`): the state advanced K
+        steps; the metrics, [K] each (on the card, the graph's outputs,
+        which the next chunk overwrites). The chunk's graph is the one of
+        the G update's phase at its first step."""
+        K = self.settings.steps_per_dispatch
+        stacked = np.stack([self._flat_args(next(args)) for _ in range(K)])
+        step = self.state.step
+        metrics = self._train_chunk(
+            stacked, key=step % self.settings.generator_training_step_period)
+        self.state.step = step + K
+        return metrics
+
+    def training_loop(self) -> None:
+        if self.settings.steps_per_dispatch > 1:
+            self._chunked_training_loop()
+        else:
+            super().training_loop()
+
+    def _chunked_training_loop(self) -> None:
+        """The per-step loop's semantics at K steps a dispatch: summaries
+        (the chunk's first step's metrics, as JAX writes ``v[0]``), saves,
+        validation and the profiler land on the per-step loop's steps;
+        their periods must be multiples of K, so that every period
+        boundary is a chunk boundary. Window refreshes land on chunk
+        boundaries."""
+        settings = self.settings
+        K = settings.steps_per_dispatch
+        steps_per_epoch = self.steps_per_epoch()
+        total_steps = self.total_steps()
+
+        def check(name, value):
+            if value and value % K != 0:
+                raise ValueError(
+                    f"{name}={value} must be a multiple of "
+                    f"steps_per_dispatch={K} (period boundaries must be "
+                    f"chunk boundaries)")
+
+        check("total training steps", total_steps)
+        check("summary_step_period", settings.summary_step_period)
+        check("save_step_period", settings.save_step_period or 0)
+        if settings.validation_step_period:
+            check("validation_step_period", settings.validation_step_period)
+        else:
+            check("steps_per_epoch (per-epoch validation cadence; set "
+                  "validation_step_period to decouple)", steps_per_epoch)
+        if self._start_step % K:
+            raise ValueError(
+                f"resumed step {self._start_step} is not a multiple of "
+                f"steps_per_dispatch={K}; resume with steps_per_dispatch=1 "
+                f"or a divisor of the checkpoint step")
+
+        args = self._patch_args_stream()
+        step = self.state.step
+        profile_range = settings.profile_step_range
+        profiler = None
+        self._last_summary = None
+        while step < total_steps:
+            if (profile_range and profiler is None and self.is_writer
+                    and step <= profile_range[0] < step + K):
+                profiler = self._start_profiler()
+            self._refresh_windows(step)
+            chunk_metrics = self.dispatch_chunk(args)
+            if settings.debug_nans:
+                for i in range(K):
+                    check_finite({k: v[i] for k, v in
+                                  chunk_metrics.items()}, step + i)
+            if profiler is not None and step + K >= profile_range[1]:
+                self._stop_profiler(profiler)
+                profiler = None
+            self.step_summaries(step, lambda: {
+                k: v[0] for k, v in chunk_metrics.items()})
+            step += K
+            if (settings.save_step_period
+                    and step % settings.save_step_period == 0):
+                self.save_models()
+            if settings.validation_step_period:
+                if step % settings.validation_step_period == 0:
+                    self.validation_summaries(
+                        epoch=step // steps_per_epoch, step=step)
+            elif step % steps_per_epoch == 0:
+                self.validation_summaries(
+                    epoch=step // steps_per_epoch, step=step)
+        if profiler is not None:  # the run ended inside the window
+            self._stop_profiler(profiler)
+        if (not settings.validation_step_period
+                and step % steps_per_epoch != 0):
+            # The per-step loop also validates after a final partial epoch.
+            self.validation_summaries(
+                epoch=step // steps_per_epoch + 1, step=step)
 
     def _host_epoch_iterators(self):
         """The host tier's batches: the labeled prefetcher's uint8 crops,

@@ -7,6 +7,12 @@ their Adam moments, and the structure they were saved with. It is one
 under a temporary directory name and renamed into place, so a reader
 never finds half a checkpoint.
 
+Adam's step count is saved as a host tensor whether it lived on the
+card (a ``capturable`` Adam, ``steps_per_dispatch`` > 1 on a card) or
+on the host; ``torch.optim``'s loading puts it back where the restoring
+optimizer keeps it, so a trial saved at one ``steps_per_dispatch``
+resumes at another.
+
 The optimizers' hyperparameters (learning rate, betas, decay) are not
 restored: as in the JAX package, where they live in the optax
 transformation and not in its state, a resumed trial takes them from its

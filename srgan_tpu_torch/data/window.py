@@ -18,7 +18,10 @@ previous steps' sampler reads before the write. Two hazards are closed
 by events: the thread refills the pinned buffer only after its last copy
 to the device finished, and the side stream writes the staging buffer
 again only after the last apply's copy out of it ran. On the CPU the
-same schedule runs with plain copies.
+same schedule runs with plain copies. A refresh copies into the window's
+tensors in place, so a CUDA graph that samples them (the training chunk
+of ``steps_per_dispatch``, ``utils/cuda_graph.py``) keeps valid pointers;
+the chunked loop refreshes between replays.
 
 ``refresh_period=k > 0`` applies a slice at every k-th step boundary
 (the content at step t is a function of the seed alone; the device

@@ -27,9 +27,10 @@ state from the last checkpoint into this process.
 ``profile_step_range`` traces steps ``[start, end)`` with
 ``torch.profiler`` into ``<trial>/profile/``; ``debug_nans`` turns on
 autograd's anomaly mode for ``train()`` and checks every step's metrics.
-Not ported yet (``ROADMAP.md``): the tensor-parallel mesh and the K-step
-dispatch. A setting that asks for one of them raises
-``NotImplementedError`` (:func:`check_supported`).
+``steps_per_dispatch`` > 1 runs K steps a dispatch in the crowd app alone
+(``apps/crowd.py``); this class's loop refuses it, as JAX's does. Not
+ported yet (``ROADMAP.md``): the tensor-parallel mesh. A setting that asks
+for it raises ``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -61,7 +62,6 @@ from srgan_tpu_torch.utils.summary import SummaryWriter, make_trial_directory
 # Settings of features the port does not run yet, with the value that
 # keeps each one off.
 _UNPORTED = {
-    "steps_per_dispatch": 1,
     "model_parallel_devices": 1,
 }
 
@@ -131,6 +131,8 @@ class Experiment:
         self._rng: Optional[torch.Generator] = None
         # Offsets every host-side data RNG; nonzero only after a resume.
         self._start_step = 0
+        # (host time, step) of the last summary, for the throughput.
+        self._last_summary: Optional[tuple] = None
         # True inside prepare_for_evaluation: the input pipeline skips the
         # training splits, which evaluation never samples.
         self._evaluation_only = False
@@ -351,20 +353,30 @@ class Experiment:
         self._restore_for_evaluation(self.trial_directory)
         return self.state
 
+    def total_steps(self) -> int:
+        """The step the loop trains to: ``epochs_to_run`` epochs, else
+        ``steps_to_run``."""
+        if self.settings.epochs_to_run is not None:
+            return self.settings.epochs_to_run * self.steps_per_epoch()
+        return self.settings.steps_to_run
+
     def training_loop(self) -> None:
         """Epochs of labeled batches, each step the fused GAN + DNN
-        update; summaries every ``summary_step_period`` steps."""
+        update; summaries every ``summary_step_period`` steps. One step a
+        dispatch: ``steps_per_dispatch`` > 1 is refused, as JAX refuses
+        it for an app whose loop takes one host batch a step."""
         settings = self.settings
+        if settings.steps_per_dispatch > 1:
+            raise ValueError(
+                "steps_per_dispatch > 1 is only supported by apps with an "
+                "on-device input pipeline (crowd HBM-resident path); this "
+                "app's loop dispatches one step per host batch")
         step = self.state.step
         steps_per_epoch = self.steps_per_epoch()
-        if settings.epochs_to_run is not None:
-            total_steps = settings.epochs_to_run * steps_per_epoch
-        else:
-            total_steps = settings.steps_to_run
+        total_steps = self.total_steps()
         profile_range = settings.profile_step_range
         profiler = None
-        last_summary_time = None
-        last_summary_step = step
+        self._last_summary = None
         epoch = step // steps_per_epoch
         epochs = self.epoch_batch_iterators()
         while step < total_steps:
@@ -380,23 +392,7 @@ class Experiment:
                 if profiler is not None and step + 1 >= profile_range[1]:
                     self._stop_profiler(profiler)
                     profiler = None
-                self.gan_summary_writer.step = step
-                self.dnn_summary_writer.step = step
-                if self.gan_summary_writer.is_summary_step():
-                    self.write_step_summaries(step_metrics)
-                    # Reading the metrics synchronized with the device.
-                    now = time.perf_counter()
-                    if last_summary_time is not None \
-                            and step > last_summary_step:
-                        steps_per_sec = ((step - last_summary_step)
-                                         / (now - last_summary_time))
-                        self.gan_summary_writer.add_scalar(
-                            "throughput/steps_per_second", steps_per_sec)
-                        self.gan_summary_writer.add_scalar(
-                            "throughput/examples_per_second",
-                            steps_per_sec * settings.batch_size)
-                    last_summary_time = now
-                    last_summary_step = step
+                self.step_summaries(step, lambda: step_metrics)
                 step += 1
                 # step now equals state.step, which names the checkpoint.
                 if (settings.save_step_period
@@ -414,6 +410,27 @@ class Experiment:
         if profiler is not None:  # the run ended inside the window
             self._stop_profiler(profiler)
 
+    def step_summaries(self, step: int, step_metrics) -> None:
+        """Point the writers at ``step``; on a summary step write the
+        metrics that ``step_metrics()`` returns and the throughput since
+        the last summary (reading the metrics synchronized with the
+        device)."""
+        self.gan_summary_writer.step = step
+        self.dnn_summary_writer.step = step
+        if not self.gan_summary_writer.is_summary_step():
+            return
+        self.write_step_summaries(step_metrics())
+        now = time.perf_counter()
+        if self._last_summary is not None and step > self._last_summary[1]:
+            last_time, last_step = self._last_summary
+            steps_per_sec = (step - last_step) / (now - last_time)
+            self.gan_summary_writer.add_scalar(
+                "throughput/steps_per_second", steps_per_sec)
+            self.gan_summary_writer.add_scalar(
+                "throughput/examples_per_second",
+                steps_per_sec * self.settings.batch_size)
+        self._last_summary = (now, step)
+
     def _step(self, labeled_x, labels, unlabeled_x):
         if self.settings.dnn_only:
             return self._train_step(self.state, labeled_x, labels)
@@ -430,7 +447,10 @@ class Experiment:
 
     def _stop_profiler(self, profiler: torch.profiler.profile) -> None:
         """Stop ``profiler`` and write its Chrome trace to
-        ``<trial>/profile/steps_<start>_<end>.json``."""
+        ``<trial>/profile/steps_<start>_<end>.json``, once the card has
+        run what was enqueued."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
         profiler.stop()
         start, end = self.settings.profile_step_range
         directory = os.path.join(self.trial_directory, "profile")

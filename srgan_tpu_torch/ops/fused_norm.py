@@ -13,7 +13,9 @@ The port of ``srgan_tpu.ops.fused_norm`` (``Settings.norm_impl="pallas"``):
   kernels of ``csrc/fused_norm.cu`` (built at first use): a thread-block
   cluster per example holds its rows in shared memory, so x (and dy) are
   read from device memory once. :func:`norm_tiling` chooses the cluster
-  and what it holds. Each launch adds one to the launcher's ``launches``.
+  and what it holds. Each launch adds one to the launcher's ``launches``
+  (a replay of a captured training chunk adds the launches its capture
+  made: ``utils/cuda_graph.py``).
 * Two ``torch.autograd.Function``s, the ``custom_vjp``-over-``custom_jvp``
   structure of JAX's ``_make_gn_act``: :class:`_GroupNormActFwd` runs the
   forward kernel, and its backward is :class:`_GroupNormActBwd`, which

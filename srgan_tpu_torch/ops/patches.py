@@ -18,9 +18,12 @@ Each comes in three functions:
   On a CUDA tensor it launches its hand-written kernel of
   ``csrc/patches.cu`` (built at first use) on the launch plan of
   :func:`sampler_plan`, or raises; on a CPU tensor, and only there, it runs
-  the plain version. Every launch adds one to the wrapper's ``launches``;
+  the plain version. Every launch adds one to the wrapper's ``launches``
+  (a replay of a captured training chunk adds the launches its capture
+  made: ``utils/cuda_graph.py``);
 * the same function in plain PyTorch (``*_plain``), on any device. The CPU
-  tests use it; ``chip_smoke.py`` holds the kernel against it on the card;
+  tests use it; ``chip_smoke.py`` holds the kernel against it on the card.
+  It synchronizes (a bounds check), so it raises under CUDA graph capture;
 * the NumPy golden model (``*_reference``).
 
 The output keeps the JAX package's [B, P, P, C] layout. Its
@@ -147,13 +150,24 @@ def _launch_patches(images: torch.Tensor, indices: torch.Tensor,
     return out
 
 
+def _refuse_capture(name: str) -> None:
+    """A plain version reads values back to the host; under CUDA graph
+    capture that read would fail and end the capture, so it raises here
+    first."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name} synchronizes with the card and cannot "
+                           f"run under CUDA graph capture")
+
+
 def extract_patches_plain(images: torch.Tensor, offsets: torch.Tensor,
                           flips: torch.Tensor, *, patch_size: int,
                           scale: float = 1.0, shift: float = 0.0,
                           indices: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """The same function in plain PyTorch (advanced indexing), on any
-    device. Raises on a window outside its image."""
+    device. Raises on a window outside its image, and under CUDA graph
+    capture."""
+    _refuse_capture("extract_patches_plain")
     n, h, w, _ = images.shape
     p = int(patch_size)
     device = images.device
@@ -502,7 +516,8 @@ def extract_rescaled_patches_plain(images: torch.Tensor,
     the examples that use it are cropped and normalized
     (:func:`extract_patches_plain`), contracted with the resize weights
     along y and x, and scaled by the mass factor; then all are flipped.
-    Raises on a window outside its image."""
+    Raises on a window outside its image, and under CUDA graph capture."""
+    _refuse_capture("extract_rescaled_patches_plain")
     window_sizes = tuple(int(v) for v in window_sizes)
     n, h, w, c = images.shape
     _check_windows(window_sizes, h, w)

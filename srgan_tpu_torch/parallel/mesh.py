@@ -23,6 +23,11 @@ collectives that both NCCL and gloo run on CUDA tensors; a gather is a
 sum all-reduce of zero-padded slices (:func:`gather_rows`). The group is
 initialized from a ``file://`` store in a directory the caller gives (no
 TCP port), with a timeout, so that a deadlocked collective raises.
+
+Under NCCL the collectives of a step are captured with it into the CUDA
+graph of a training chunk (``steps_per_dispatch``,
+``utils/cuda_graph.py``); gloo's run through the host and cannot be, so
+a chunk on a card refuses a gloo group (``apps/crowd.py``).
 """
 
 from __future__ import annotations

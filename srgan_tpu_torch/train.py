@@ -86,6 +86,11 @@ class Optimizer:
     ``max_norm / norm`` when ``norm > max_norm``, with no ε, which is what
     :meth:`step` does (``clip_grad_norm_`` would divide by norm + 1e-6).
     Under ``dp`` the gradients are first averaged over the ranks.
+
+    On a card with ``steps_per_dispatch`` > 1 Adam is ``capturable``: its
+    step counts and bias corrections live on the card, so that a CUDA
+    graph of K steps (``utils/cuda_graph.py``) replays them. Everywhere
+    else it is the default Adam, whose step counts live on the host.
     """
 
     def __init__(self, settings: Settings, params: List[nn.Parameter],
@@ -93,8 +98,11 @@ class Optimizer:
         self.params = params
         self.dp = dp
         self.clip_norm = settings.gradient_clip_norm
+        capturable = (settings.steps_per_dispatch > 1
+                      and params[0].device.type == "cuda")
         kwargs = dict(lr=settings.learning_rate,
-                      betas=(settings.adam_b1, settings.adam_b2), eps=1e-8)
+                      betas=(settings.adam_b1, settings.adam_b2), eps=1e-8,
+                      capturable=capturable)
         if weight_decay and settings.weight_decay > 0.0:
             self.adam = torch.optim.AdamW(
                 params, weight_decay=settings.weight_decay, **kwargs)

@@ -686,3 +686,172 @@ def test_more_ranks_than_cards_raise():
     assert len(rank_devices()) == count
     with pytest.raises(ValueError, match="exceeds"):
         rank_devices(count + 1)
+
+
+# steps_per_dispatch on the card: chunks of K steps as CUDA graph replays
+# (srgan_tpu_torch/utils/cuda_graph.py), small versions of chip_smoke.py's
+# phase 14 (a).
+DISPATCH_TINY = dict(DP_TINY, batch_size=8, model_base_width=16,
+                     labeled_dataset_size=6, unlabeled_dataset_size=6,
+                     mean_offset=0.5, steps_per_dispatch=2,
+                     norm_impl="pallas", summary_step_period=2,
+                     data_parallel_devices=1)
+
+
+def _manual_crowd(tmp_path, **over):
+    from srgan_tpu_torch import CrowdExperiment, Settings
+    from srgan_tpu_torch.train import init_train_state, set_float32_precision
+
+    set_float32_precision()
+    settings = Settings(**dict(DISPATCH_TINY, logs_directory=str(tmp_path),
+                               **over))
+    exp = CrowdExperiment(settings, device="cuda")
+    exp.dataset_setup()
+    exp.models = exp.model_setup()
+    exp.state = init_train_state(settings, exp.models)
+    exp.prepare_train_step()
+    return exp
+
+
+def test_chunk_replays_are_their_eager_steps_bit_for_bit(tmp_path,
+                                                         monkeypatch):
+    """3 chunks of 2 (eager, capture and replay, replay) against 6 single
+    eager steps: metrics, models and the generator bit for bit (cuDNN's
+    deterministic algorithms in both; a throwaway step first, as in
+    chip_smoke.py's phase 14 (a): the first step of a configuration in a
+    process may differ from every later one by an ulp, graph or not)."""
+    from srgan_tpu_torch.utils.cuda_graph import TrainChunk
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    runs = []
+    for chunked in (None, True, False):
+        exp = _manual_crowd(tmp_path)
+        args = exp._patch_args_stream()
+        data = exp._device_data
+        metrics = []
+        before = (TrainChunk.captures, TrainChunk.replays)
+        for _ in range(1 if chunked is None else 3):
+            if chunked:
+                out = exp.dispatch_chunk(args)
+                metrics += [{k: v[i].cpu() for k, v in out.items()}
+                            for i in range(2)]
+                continue
+            for _ in range(2):
+                batch = exp._sample_batch(
+                    data["labeled_images"], data["labeled_density"],
+                    data["unlabeled_images"], *next(args))
+                exp.state, m = exp._train_step(exp.state, *batch, exp._rng)
+                metrics.append({k: v.cpu() for k, v in m.items()})
+        if chunked:
+            assert (TrainChunk.captures - before[0],
+                    TrainChunk.replays - before[1]) == (1, 2)
+        runs.append((metrics, {n: getattr(exp.state, n).state_dict()
+                               for n in ("d", "g", "dnn")},
+                     exp._rng.get_state(), exp.state.step))
+    (a, models_a, rng_a, step_a), (b, models_b, rng_b, step_b) = runs[1:]
+    for i, (x, y) in enumerate(zip(a, b)):
+        for k in y:
+            assert torch.equal(x[k], y[k]), (i, k)
+    for name in models_b:
+        for k, v in models_b[name].items():
+            assert torch.equal(models_a[name][k], v), (name, k)
+    assert torch.equal(rng_a, rng_b) and step_a == step_b == 6
+
+
+def test_each_replay_draws_from_where_the_generator_stands():
+    """A chunk that draws z: the eager chunk, the capture's replay and a
+    replay draw what three eager draws from the same seed do, and leave
+    the generator where they leave theirs."""
+    from srgan_tpu_torch.utils.cuda_graph import TrainChunk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(11)
+    twin = torch.Generator(dev).manual_seed(11)
+
+    def body(args):
+        return {"z": torch.randn((2, 64), generator=gen, device=dev)
+                + args.float().sum()}
+
+    chunk = TrainChunk(body, 2, 3, dev, gen)
+    zeros = np.zeros((2, 3), np.int32)
+    outs = [chunk(zeros)["z"].clone() for _ in range(3)]
+    for out in outs:
+        torch.testing.assert_close(
+            out, torch.randn((2, 64), generator=twin, device=dev),
+            rtol=0, atol=0)
+    assert not torch.equal(outs[1], outs[2])
+    assert torch.equal(gen.get_state(), twin.get_state())
+
+
+def test_launch_counters_count_what_a_replay_runs():
+    """A chunk of 2 sampler calls: 2 launches counted a chunk, eager,
+    captured and replayed alike; one capture, two replays."""
+    from srgan_tpu_torch.utils.cuda_graph import TrainChunk
+
+    images, indices, offsets, flips = _inputs(torch.uint8, 3)
+    dev = images.device
+
+    def body(args):
+        rows = [extract_patches(images, offsets, flips, patch_size=P,
+                                indices=(indices + r[0]) % N) for r in args]
+        return {"patches": torch.stack(rows)}
+
+    chunk = TrainChunk(body, 2, 1, dev, torch.Generator(dev))
+    before = (extract_patches.launches, TrainChunk.captures,
+              TrainChunk.replays)
+    for c in range(3):
+        out = chunk(np.array([[c], [c + 1]], np.int32))["patches"]
+        torch.cuda.synchronize()
+        assert extract_patches.launches - before[0] == 2 * (c + 1)
+        for r in range(2):
+            want = extract_patches_plain(images, offsets, flips,
+                                         patch_size=P,
+                                         indices=(indices + c + r) % N)
+            torch.testing.assert_close(out[r], want, rtol=0, atol=0)
+    assert (TrainChunk.captures - before[1],
+            TrainChunk.replays - before[2]) == (1, 2)
+
+
+def test_a_plain_sampler_under_capture_raises():
+    images, indices, offsets, flips = _inputs(torch.uint8, 3)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="cannot run under CUDA graph"):
+        with torch.cuda.graph(graph):
+            extract_patches_plain(images, offsets, flips, patch_size=P,
+                                  indices=indices)
+
+
+def test_debug_nans_with_chunks_is_refused_on_the_card(tmp_path):
+    with pytest.raises(ValueError, match="debug_nans runs on the CPU only"):
+        _manual_crowd(tmp_path, debug_nans=True)
+
+
+def test_a_gloo_world_on_a_card_refuses_chunks(tmp_path):
+    """Two ranks on cuda:0 run over gloo, whose collectives a CUDA graph
+    cannot capture: K = 2 raises in the ranks."""
+    from torch.multiprocessing import ProcessRaisedException
+
+    with pytest.raises(ProcessRaisedException, match="needs NCCL"):
+        _dp_train(tmp_path, ["cuda:0", "cuda:0"], steps_per_dispatch=2)
+
+
+def test_a_checkpoint_moves_between_k2_and_k1(tmp_path):
+    """Saved at K = 2 (Adam's step on the card), resumed at K = 1 (on the
+    host) and again at K = 2: each resume trains on from its checkpoint."""
+    from srgan_tpu_torch import CrowdExperiment, Settings
+
+    trial = None
+    for k, steps in ((2, 2), (1, 4), (2, 6)):
+        settings = Settings(**dict(
+            DISPATCH_TINY, logs_directory=str(tmp_path), steps_to_run=steps,
+            steps_per_dispatch=k, load_model_path=trial))
+        exp = CrowdExperiment(settings, device="cuda")
+        state = exp.train()
+        assert state.step == steps
+        where = {s["step"].device.type
+                 for opt in (state.d_opt, state.g_opt, state.dnn_opt)
+                 for s in opt.adam.state.values()}
+        assert where == {"cuda" if k > 1 else "cpu"}
+        assert {float(s["step"]) for s in state.d_opt.adam.state.values()
+                } == {float(steps)}
+        trial = exp.trial_directory

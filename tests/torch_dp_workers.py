@@ -216,3 +216,55 @@ def trained_models(experiment):
         out["cancelled"] |= {(name, k) for k in out[name]
                              if _bias_cancelled_by_norm(inner, k)}
     return out
+
+
+def _metrics_list(chunk_metrics, steps):
+    return [{k: v[i].clone() for k, v in chunk_metrics.items()}
+            for i in range(steps)]
+
+
+def _models(state):
+    return {name: {k: v.detach().clone()
+                   for k, v in getattr(state, name).state_dict().items()}
+            for name in ("d", "g", "dnn")}
+
+
+def chunk_against_steps(dp, settings_kw):
+    """One chunk of ``steps_per_dispatch`` steps of the crowd app and, on a
+    second experiment from the same seed, as many single steps: their
+    metrics and models, and the generators' states after."""
+    out = {}
+    for how in ("chunk", "steps"):
+        exp = CrowdExperiment(Settings(**settings_kw), device="cpu",
+                              data_parallel=dp)
+        exp.dataset_setup()
+        exp.models = exp.model_setup()
+        exp.state = init_train_state(exp.settings, exp.models, dp)
+        exp.prepare_train_step()
+        args = exp._patch_args_stream()
+        k = exp.settings.steps_per_dispatch
+        if how == "chunk":
+            metrics = _metrics_list(exp.dispatch_chunk(args), k)
+        else:
+            data = exp._device_data
+            metrics = []
+            for _ in range(k):
+                batch = exp._sample_batch(
+                    data["labeled_images"], data["labeled_density"],
+                    data["unlabeled_images"], *next(args))
+                exp.state, m = exp._train_step(exp.state, *batch, exp._rng)
+                metrics.append(m)
+        out[how] = {"metrics": metrics, "models": _models(exp.state),
+                    "step": exp.state.step, "rng": exp._rng.get_state(),
+                    "next_args": next(args)}
+        exp.close()
+    return out
+
+
+def train_chunked(dp, settings_kw, trial_directory):
+    """``train()`` on this rank under ``trial_directory``: the models
+    after it and the (model, key) of each cancelled conv bias."""
+    exp = CrowdExperiment(Settings(**settings_kw), device="cpu",
+                          data_parallel=dp)
+    exp.given_trial_directory = trial_directory
+    return trained_models(exp)
