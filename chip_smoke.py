@@ -146,13 +146,34 @@ Phases, each of which fails the run if it fails:
              64-px patches, base width 16): ms/step, images/s, the
              host's ms a call, the card's busy share under the profiler,
              the peak allocated, the first chunk's and the capture's
-             wall ms.
+             wall ms;
+15. tensor — ``model_parallel_devices=2``: the fused norm kernels
+             against their plain versions at every sharded norm shape of
+             a grid rank's flagship step ([3B, HW, C/2] and [B, HW, C/2],
+             16 groups, batch 8), then a grid of data 1 × model 2 over
+             gloo on this card (``devices`` naming it twice), one launch:
+             (c) a conv → norm of 3 groups (straddling the ranks) → conv
+             layer against its unsharded self, forward and double
+             backward, under "xla" and "pallas"; (a) ``TP_TINY`` in
+             float32 under "xla", "pallas" and "xla" with the gradient
+             clipped (``TP_CLIP``, which every model's gradient
+             exceeds), 4 steps, the ranks' full models bit-equal and held
+             after every step to one rank fed the same batches and draws
+             (metrics rtol 5e-4, atol 5e-5; models 2.1·lr a step;
+             Adam's moments after the first step rtol 5e-4, atol
+             5e-5); (b) the flagship widths under
+             "pallas" at batch 8 (cut from 120 so that gloo's
+             host-staged collectives fit the time), 4 steps and a
+             validation pass through ``train()``, a rank's launches (3
+             sampler, 30/25 norm a step) and the shapes its norm kernels
+             ran at asserted; per rank the ms/step, the peak allocated
+             memory and the host ms of the model-axis collectives a step.
 
 Prints the kernel table as one JSON line (each kernel's launches counted
 on the path that runs it: the training kernels in the rescale run of
 phase 5, the density kernel in phase 7, the copy kernel in phase 9;
-phases 4, 10, 11, 12, 13 and 14 count the launches of each run they
-drive and assert them),
+phases 4, 10, 11, 12, 13, 14 and 15 count the launches of each run
+they drive and assert them),
 then the card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": ...}``.
 Exits nonzero, printing no result, without a CUDA card or outside a
@@ -611,9 +632,9 @@ def _assert_within(name, got, want, bound):
 
 
 def _check_norm_shape(dev, gen, b, hw, c, slope, per_step, library=False,
-                      queued=False):
+                      queued=False, groups=32):
     """The fused norm's forward and backward kernels against their plain
-    versions at x [b, hw, c] bfloat16 (tolerances at
+    versions at x [b, hw, c] bfloat16 with ``groups`` groups (tolerances at
     ``check_norm_kernels``), each timed beside the plain version and its
     bound (``queued`` as in ``cuda_ms``), its tiling logged with
     ``per_step`` (forward, backward) launches and, ``queued``, the
@@ -627,20 +648,21 @@ def _check_norm_shape(dev, gen, b, hw, c, slope, per_step, library=False,
     dy = randn(b, hw, c).to(torch.bfloat16)
     scale = 1.0 + 0.1 * randn(c)
     bias = 0.1 * randn(c)
-    fwd_args = (x, scale, bias, 32, slope, 1e-6)
+    fwd_args = (x, scale, bias, groups, slope, 1e-6)
     y, mean, rstd = fn._launch_fwd(*fwd_args)
     torch.cuda.synchronize()
     want_y, want_mean, want_rstd = fn.group_norm_act_fwd_plain(*fwd_args)
     if y.dtype != torch.bfloat16 or y.shape != x.shape:
         raise AssertionError(f"forward kernel returned {y.dtype} "
                              f"{list(y.shape)}")
-    shape = f"[{b}, {hw}, {c}] bf16 slope {slope}"
+    shape = f"[{b}, {hw}, {c}] bf16 slope {slope}" + (
+        f", {groups} groups" if groups != 32 else "")
     err = {"fwd": _assert_within(
         f"y {shape}", y, want_y, 2 ** -7 * want_y.float().abs()
         + 1e-5 * float(want_y.float().abs().max()))}
     torch.testing.assert_close(mean, want_mean, rtol=1e-5, atol=0)
     torch.testing.assert_close(rstd, want_rstd, rtol=1e-5, atol=0)
-    bwd_args = (x, scale, bias, mean, rstd, dy, 32, slope)
+    bwd_args = (x, scale, bias, mean, rstd, dy, groups, slope)
     dx, dscale, dbias = fn._launch_bwd(*bwd_args)
     torch.cuda.synchronize()
     want_dx, want_dscale, want_dbias = fn.group_norm_act_bwd_plain(
@@ -660,7 +682,7 @@ def _check_norm_shape(dev, gen, b, hw, c, slope, per_step, library=False,
     # Least bytes: x (and dy) read once, y (dx) written once, the float32
     # per-channel and per-group vectors; operations about 8 (forward) and
     # 15 (backward) per element.
-    vectors = 4 * (2 * c + 2 * b * 32)
+    vectors = 4 * (2 * c + 2 * b * groups)
     xb = x.numel() * x.element_size()
     ops = {"fwd": 8 * x.numel(), "bwd": 15 * x.numel()}
     out = {"err": err, "ms": {}, "traffic_bound": {},
@@ -707,7 +729,8 @@ def _check_norm_shape(dev, gen, b, hw, c, slope, per_step, library=False,
     return out
 
 
-def _weighted_norm_step(dev, gen, shapes, what, worst, queued=False):
+def _weighted_norm_step(dev, gen, shapes, what, worst, queued=False,
+                        groups=32):
     """Check and time every shape of ``shapes`` (``NORM_SHAPES``' form)
     and return {kind: {"ms", "bound_ms"}}, each shape's kernel time and
     bound weighted by its launches a step; ``worst`` (by kind) takes the
@@ -717,7 +740,8 @@ def _weighted_norm_step(dev, gen, shapes, what, worst, queued=False):
     first = None
     for b, hw, c, slope, *per_step in shapes:
         got = _check_norm_shape(dev, gen, b, hw, c, slope, per_step,
-                                library=first is None, queued=queued)
+                                library=first is None, queued=queued,
+                                groups=groups)
         first = first or got
         for kind, launches in zip(("fwd", "bwd"), per_step):
             worst[kind] = max(worst[kind], got["err"][kind])
@@ -2835,6 +2859,426 @@ def dispatch_main_path(dev, logs: str, card: str) -> dict:
     return out
 
 
+# Phase 15, tensor parallelism (model_parallel_devices = 2): a grid of
+# data 1 × model 2 on this card, cuda:0 named twice, over gloo (NCCL
+# refuses two ranks on one device). Every model-axis collective is then
+# staged through the host, so the times are one card shared by two
+# processes plus the host's copies, not a speedup. One launch runs, in
+# each rank: (c) one layer whose norm groups straddle the ranks (conv 3 →
+# 96, GroupNorm of 3 groups + LeakyReLU, conv 96 → 6, float32) against
+# its unsharded self, forward and double backward; (a) TP_TINY (float32,
+# DP_TINY's models, K = 1) under "xla", under "pallas" and under "xla"
+# with the gradient clipped at TP_CLIP, 4 steps each, the full models and
+# Adam's moments gathered after every step (the first step's record its
+# averaged and clipped gradient, which the parameters after Adam's first
+# step do not show: it moves each by about lr·sign(g)); (b) the flagship
+# widths under "pallas" (bf16, JointCNN, 224-px patches, latent 100) at
+# batch 8 a step: the batch is cut from 120 so that gloo's host-staged
+# collectives fit the script's time. 4 steps and a validation pass
+# through train(), every rank's launches asserted, then timed steps, the
+# peak allocated memory and, in one more step with the card synchronized
+# around each model-axis collective, their host ms and the shapes at
+# which the norm kernels ran.
+TP_TINY = dict(DP_TINY, crowd_shard_dataset=False, data_parallel_devices=1,
+               model_parallel_devices=2, steps_to_run=4,
+               validation_step_period=4)
+# Below every model's gradient norm at TP_TINY's first step, so that the
+# clip acts in each (_tp_held_to_one_rank asserts it).
+TP_CLIP = 0.5
+TP_TINY_RUNS = {"xla": dict(norm_impl="xla"),
+                "pallas": dict(norm_impl="pallas"),
+                "xla-clip": dict(norm_impl="xla",
+                                 gradient_clip_norm=TP_CLIP)}
+TP_BATCH = 8
+TP_FLAGSHIP = dict(FLAGSHIP, trial_name="chip_smoke_tp", norm_impl="pallas",
+                   batch_size=TP_BATCH, model_parallel_devices=2,
+                   steps_to_run=4, summary_step_period=1,
+                   validation_step_period=4)
+TP_TIMED_STEPS = 3
+# Every norm of the flagship step on a rank of the 1 × 2 grid at batch 8:
+# NORM_SHAPES' launches at B = 3·8 and 8, C/2 channels, 16 groups (G's
+# first norm too: its Dense's features are gathered before the reshape,
+# and the norm takes this rank's channels of them).
+TP_NORM_SHAPES = [(3 * TP_BATCH if b == 360 else TP_BATCH, hw, c // 2,
+                   slope, fwd, bwd)
+                  for b, hw, c, slope, fwd, bwd in NORM_SHAPES]
+# tests/torch_dp_workers.py's Block: conv 3 → 96, GroupNorm of 3 groups
+# (a group straddles the two ranks' 48 channels), conv 96 → 6.
+TP_STRADDLE = dict(cin=3, width=96, cout=6, groups=3)
+# The straddling layer against its unsharded self on the card: float32
+# convolutions of a block of output channels may take another cuDNN
+# algorithm than the whole convolution.
+TP_STRADDLE_RTOL = 1e-4
+
+
+def tp_straddle(dp, impl: str) -> dict:
+    """Phase 15 (c) on a rank: the straddling layer sharded and whole on
+    the same input, for ``impl`` (``tests/torch_dp_workers.py``'s
+    ``tp_block``, which imports no JAX): the largest relative error of
+    each tensor, and the sharded norm's groups and channels."""
+    import torch_dp_workers as workers
+    got = workers.tp_block(dp, impl=impl, seed=5, device=str(dp.device),
+                           **TP_STRADDLE)
+
+    def flat(tree):
+        return dict({k: v for k, v in tree.items() if k != "grads"},
+                    **tree["grads"])
+
+    want, ours = flat(got["want"]), flat(got["got"])
+    errors = {k: float((ours[k] - w).abs().max()
+                       / max(float(w.abs().max()), 1e-30))
+              for k, w in want.items()}
+    return {"errors": errors, "groups": got["local_groups"],
+            "local_channels": got["local_width"]}
+
+
+def tp_tiny_action(experiment) -> dict:
+    """Phase 15 (a) on a rank: ``train()`` with every step's batch, its
+    metrics and the full models and Adam moments after it (gathered over
+    the model ranks) kept."""
+    from srgan_tpu_torch.parallel import tp
+    step = experiment._step
+    record = []
+
+    def moments(opt):
+        return {i: {k: entry[k].cpu() for k in ("exp_avg", "exp_avg_sq")}
+                for i, entry in tp.full_optimizer_state(
+                    opt.adam, opt.params).items()}
+
+    def recording(*batch):
+        experiment.state, metrics = step(*batch)
+        state = experiment.state
+        record.append({
+            "batch": [t.cpu() for t in batch],
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "models": {name: {k: v.cpu() for k, v in tp.full_state_dict(
+                getattr(state, name)).items()}
+                for name in ("d", "g", "dnn")},
+            "moments": {name: moments(getattr(state, f"{name}_opt"))
+                        for name in ("d", "g", "dnn")}})
+        return experiment.state, metrics
+
+    experiment._step = recording
+    state = experiment.train()
+    experiment.close()
+    return {"steps": record, "step": state.step}
+
+
+def _instrumented_step(experiment, stream) -> dict:
+    """One step with the card synchronized around each model-axis
+    collective of ``parallel/tp.py``: their count, bytes and host ms, and
+    the shapes at which the norm kernels ran."""
+    from srgan_tpu_torch.ops import fused_norm as fn
+    from srgan_tpu_torch.parallel import tp
+    spent = {"calls": 0, "bytes": 0, "ms": 0.0}
+    shapes = {"fwd": [], "bwd": []}
+    real = {name: getattr(tp, name) for name in ("_all_gather",
+                                                 "_all_reduce")}
+    # The dispatchers, not the launchers, which count through their names.
+    kernels = {"fwd": fn._fwd, "bwd": fn._bwd}
+
+    def timed(f):
+        def call(x, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(x, *args)
+            torch.cuda.synchronize()
+            spent["ms"] += 1e3 * (time.perf_counter() - t0)
+            spent["calls"] += 1
+            spent["bytes"] += out.numel() * out.element_size()
+            return out
+        return call
+
+    def recorded(kind):
+        def call(x, *args, **kwargs):
+            shapes[kind].append(tuple(x.shape))
+            return kernels[kind](x, *args, **kwargs)
+        return call
+
+    try:
+        for name, f in real.items():
+            setattr(tp, name, timed(f))
+        fn._fwd, fn._bwd = recorded("fwd"), recorded("bwd")
+        experiment.state, metrics = experiment._step(*next(stream))
+        torch.cuda.synchronize()
+    finally:
+        for name, f in real.items():
+            setattr(tp, name, f)
+        fn._fwd, fn._bwd = kernels["fwd"], kernels["bwd"]
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"instrumented step: losses {metrics}")
+    return dict(spent, shapes=shapes)
+
+
+def tp_flagship_action(experiment) -> dict:
+    """Phase 15 (b) on a rank: ``train()`` with its launches counted
+    (zeroed just before), then ``TP_TIMED_STEPS`` timed steps (ms/step
+    between synchronizations), one instrumented step and the peak
+    allocated memory."""
+    counters = _launch_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = experiment.train()
+    torch.cuda.synchronize()
+    out = {"launches": {k: c.launches for k, c in counters.items()},
+           "step": state.step, "seconds": time.perf_counter() - t0}
+    experiment.prepare_train_step()  # train() closed the inputs
+    stream = (b for epoch in experiment.epoch_batch_iterators()
+              for b in epoch)
+    for _ in range(2):
+        experiment.state, _ = experiment._step(*next(stream))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TP_TIMED_STEPS):
+        experiment.state, metrics = experiment._step(*next(stream))
+    torch.cuda.synchronize()
+    out["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / TP_TIMED_STEPS
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"timed steps: losses {metrics}")
+    out["collectives"] = _instrumented_step(experiment, stream)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["local_shapes"] = {
+        k: tuple(p.shape) for k, p in state.d.named_parameters()}
+    experiment.close()
+    return out
+
+
+def tp_gloo_action(experiment, tiny_runs, flagship_settings,
+                   flagship_trial):
+    """A rank of phase 15, one process for every part: (c) the straddling
+    layer, (a) the float32 runs (the launched experiment "xla", then
+    ``tiny_runs``: (name, settings, trial) each), (b) the flagship
+    widths, each a new experiment in the same grid."""
+    from srgan_tpu_torch import CrowdExperiment
+    dp = experiment.data_parallel
+
+    def run(settings, trial, action):
+        exp = CrowdExperiment(settings, data_parallel=dp)
+        exp.given_trial_directory = trial
+        return action(exp)
+
+    out = {"straddle": {impl: tp_straddle(dp, impl)
+                        for impl in ("xla", "pallas")}}
+    out["tiny"] = {"xla": tp_tiny_action(experiment)}
+    for name, settings, trial in tiny_runs:
+        out["tiny"][name] = run(settings, trial, tp_tiny_action)
+    out["flagship"] = run(flagship_settings, flagship_trial,
+                          tp_flagship_action)
+    return out
+
+
+def _tp_held_to_one_rank(dev, settings, got) -> dict:
+    """Phase 15 (a): one rank without a grid fed the grid's batches and
+    the same draws, step by step: the metrics within the CPU tests' rtol
+    5e-4, atol 5e-5, the models within 2.1·lr a step (JAX's tolerances,
+    tests/test_tensor_parallel.py), and after the first step Adam's
+    moments, (1 − β1)·g and (1 − β2)·g² of that step's averaged and
+    clipped gradient g, within the same rtol and atol. Later moments add
+    gradients taken at parameters that already differ by rounding, and
+    in the unclipped runs they can drift past that tolerance by the
+    fourth step. With the clip on, every model's first gradient has the
+    clip norm, so that the clip acts in the step held to the grid's."""
+    from srgan_tpu_torch import CrowdExperiment
+    from srgan_tpu_torch.train import (init_train_state, make_gan_train_step,
+                                       set_float32_precision)
+    from srgan_tpu_torch.utils.seeding import generator_for
+    set_float32_precision()
+    one = CrowdExperiment(settings.copy(model_parallel_devices=1),
+                          device=dev)
+    one.models = one.model_setup()
+    state = init_train_state(one.settings, one.models)
+    step = make_gan_train_step(one.settings,
+                               labeled_loss_fn=one.labeled_loss_fn(),
+                               latent_shape=one.latent_shape())
+    rng = generator_for(settings.seed, "train", dev)
+    lr = settings.learning_rate
+    # "models": the largest difference but in a conv bias a one-channel
+    # GroupNorm cancels, whose noise-level gradient moves it ±lr a step
+    # either way ("cancelled").
+    worst = {"metrics": 0.0, "models": 0.0, "cancelled": 0.0,
+             "moments": 0.0}
+    cancelled = {name: _cancelled_biases(getattr(
+        getattr(state, name), "model", getattr(state, name)))
+        for name in ("d", "g", "dnn")}
+    for i, rec in enumerate(got["steps"]):
+        batch = [t.to(dev) for t in rec["batch"]]
+        batch = [t.contiguous(memory_format=torch.channels_last)
+                 if t.dim() == 4 else t for t in batch]
+        state, metrics = step(state, *batch, rng)
+        for k, v in rec["metrics"].items():
+            ours = float(metrics[k])
+            worst["metrics"] = max(worst["metrics"],
+                                   abs(ours - v) / max(abs(ours), 1e-6))
+            if not math.isclose(v, ours, rel_tol=5e-4, abs_tol=5e-5):
+                raise AssertionError(f"grid step {i}: {k} {v}, one rank "
+                                     f"{ours}")
+        for name in ("d", "g", "dnn"):
+            ours = getattr(state, name).state_dict()
+            for k, v in rec["models"][name].items():
+                err = float((ours[k].cpu() - v).abs().max())
+                which = "cancelled" if k in cancelled[name] else "models"
+                worst[which] = max(worst[which], err)
+                if err > 2.1 * lr * (i + 1):
+                    raise AssertionError(f"grid step {i}: {name} {k} "
+                                         f"differs by {err}")
+            if i > 0:
+                continue
+            opt = getattr(state, f"{name}_opt").adam.state_dict()["state"]
+            for j, entry in rec["moments"][name].items():
+                for k, v in entry.items():
+                    want = opt[j][k].cpu()
+                    excess = float(((v - want).abs() - 5e-4 * want.abs())
+                                   .max())
+                    worst["moments"] = max(worst["moments"], excess)
+                    if excess > 5e-5:
+                        raise AssertionError(
+                            f"first step: {name} moment {j} {k} "
+                            f"differs by {excess} beyond rtol 5e-4")
+            if settings.gradient_clip_norm > 0:
+                norm = math.sqrt(sum(
+                    float((e["exp_avg"] / (1 - settings.adam_b1)).square()
+                          .sum()) for e in opt.values()))
+                worst[f"{name}_clipped_norm"] = norm
+                if not math.isclose(norm, settings.gradient_clip_norm,
+                                    rel_tol=5e-4):
+                    raise AssertionError(
+                        f"clip {settings.gradient_clip_norm}: {name}'s "
+                        f"first gradient has norm {norm}")
+    return worst
+
+
+def tp_main_path(dev, logs: str, card: str) -> dict:
+    """Phase 15: the fused norm kernels at every sharded norm shape of a
+    grid rank's flagship step, then one launch of a 1 × 2 grid on this
+    card running (c), (a) and (b) (``tp_gloo_action``); every comparison,
+    a rank's launches and its norm shapes asserted."""
+    from srgan_tpu_torch import CrowdExperiment, Settings
+    from srgan_tpu_torch.parallel.launch import run_experiment
+    from srgan_tpu_torch.utils.summary import make_trial_directory
+    # The ranks import the straddling layer's worker from tests/.
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(15)
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    norm_step, _ = _weighted_norm_step(
+        dev, gen, TP_NORM_SHAPES, "a grid rank's flagship step at batch "
+        f"{TP_BATCH}", worst, groups=16)
+    out = {"norm_step": norm_step, "norm_worst": worst}
+
+    tiny = {name: Settings(**dict(TP_TINY, logs_directory=logs,
+                                  trial_name=f"chip_smoke_tp_{name}", **over))
+            for name, over in TP_TINY_RUNS.items()}
+    flagship = Settings(**dict(TP_FLAGSHIP, logs_directory=logs))
+    trials = {name: make_trial_directory(s) for name, s in
+              list(tiny.items()) + [("flagship", flagship)]}
+    t0 = time.perf_counter()
+    ranks_out = run_experiment(
+        CrowdExperiment, tiny["xla"], [dev, dev], action=tp_gloo_action,
+        action_args=([(name, s, trials[name]) for name, s in tiny.items()
+                      if name != "xla"], flagship, trials["flagship"]),
+        trial_directory=trials["xla"], model=2, timeout_s=DP_JOIN_S)
+    seconds = time.perf_counter() - t0
+
+    # (c) the straddling layer
+    for r, got in enumerate(ranks_out):
+        for impl, s in got["straddle"].items():
+            if (s["groups"], s["local_channels"]) != (3, 48):
+                raise AssertionError(f"straddle {impl}, rank {r}: groups "
+                                     f"{s['groups']}, channels "
+                                     f"{s['local_channels']}")
+            bad = {k: e for k, e in s["errors"].items()
+                   if e > TP_STRADDLE_RTOL}
+            if bad:
+                raise AssertionError(f"straddle {impl}, rank {r}: {bad}")
+    out["straddle"] = ranks_out[0]["straddle"]
+    log(f"tensor parallel (c), the straddling layer (conv 3 → 96, 3 groups "
+        f"over 2 ranks of 48 channels, conv 96 → 6), forward and double "
+        f"backward against its unsharded self, largest relative errors "
+        + "; ".join(f"{impl}: " + ", ".join(f"{k} {e:.1e}" for k, e in
+                                            s["errors"].items())
+                    for impl, s in out["straddle"].items())
+        + f" (within {TP_STRADDLE_RTOL:g}; {card})")
+
+    # (a) the float32 runs held to one rank
+    out["tiny"] = {}
+    for impl, settings in tiny.items():
+        a, b = (r["tiny"][impl] for r in ranks_out)
+        if a["step"] != settings.steps_to_run or \
+                [s["metrics"] for s in a["steps"]] != \
+                [s["metrics"] for s in b["steps"]]:
+            raise AssertionError(f"tiny {impl}: steps {a['step']}, or the "
+                                 f"ranks' metrics differ")
+        for sa, sb in zip(a["steps"], b["steps"]):
+            for name in ("d", "g", "dnn"):
+                for k, v in sa["models"][name].items():
+                    if not torch.equal(v, sb["models"][name][k]):
+                        raise AssertionError(f"tiny {impl}: the ranks' "
+                                             f"{name} {k} differ")
+        out["tiny"][impl] = _tp_held_to_one_rank(dev, settings, a)
+        check_validation(trials[impl], [settings.steps_to_run])
+        _written_once(trials[impl])
+        worst = out["tiny"][impl]
+        clipped = "".join(
+            f", {name}'s first gradient norm {worst[name + '_clipped_norm']}"
+            for name in ("d", "g", "dnn") if f"{name}_clipped_norm" in worst)
+        log(f"tensor parallel (a), {impl}, float32, a 1 × 2 grid over gloo "
+            f"on {dev}, gradient_clip_norm {settings.gradient_clip_norm:g}"
+            f"{clipped}: {settings.steps_to_run} steps, the ranks' models "
+            f"bit-equal after each; one rank on the same batches and draws:"
+            f" metrics within {worst['metrics']:.2e} (relative), models "
+            f"within {worst['models']:.2e} (conv biases a one-channel "
+            f"GroupNorm cancels: {worst['cancelled']:.2e}; bound 2.1·lr a "
+            f"step, lr {settings.learning_rate:g}), Adam's moments after "
+            f"the first step {worst['moments']:.2e} beyond rtol 5e-4 "
+            f"(bound 5e-5)")
+
+    # (b) the flagship widths
+    per_step = {"extract_patches": 3, "extract_rescaled_patches": 0,
+                "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+    steps = flagship.steps_to_run
+    want_shapes = {kind: sorted(
+        shape[:3] for shape in TP_NORM_SHAPES
+        for _ in range(shape[4 + (kind == "bwd")])) for kind in ("fwd",
+                                                                  "bwd")}
+    results = [r["flagship"] for r in ranks_out]
+    for r, got in enumerate(results):
+        _dp_launches(got["launches"], per_step, steps, 1, f"tp rank {r}")
+        ran = {k: sorted(v) for k, v in got["collectives"]["shapes"].items()}
+        if ran != want_shapes:
+            raise AssertionError(f"tp rank {r}: the norm kernels ran at "
+                                 f"{ran}, not {want_shapes}")
+    check_crowd_trial(trials["flagship"], steps)
+    _written_once(trials["flagship"])
+    out["flagship"] = dict(
+        ms_per_step=[g["ms_per_step"] for g in results],
+        peak_gib=[g["peak_gib"] for g in results],
+        collective_ms=[g["collectives"]["ms"] for g in results],
+        collective_calls=[g["collectives"]["calls"] for g in results],
+        collective_mib=[g["collectives"]["bytes"] / 2 ** 20
+                        for g in results],
+        launches=[g["launches"] for g in results],
+        train_seconds=[g["seconds"] for g in results], seconds=seconds)
+    log(f"tensor parallel (b), a 1 × 2 grid over gloo on {dev}, flagship "
+        f"widths under \"pallas\", batch {TP_BATCH}: {steps} steps and a "
+        f"validation pass through train(); launches a rank "
+        f"{json.dumps(results[0]['launches'])}, the norm kernels at the "
+        f"sharded shapes {sorted(set(want_shapes['fwd']))}; "
+        + "; ".join(
+            f"rank {r}: {g['ms_per_step']:.1f} ms/step ({TP_TIMED_STEPS} "
+            f"steps), peak allocated {g['peak_gib']:.2f} GiB, model-axis "
+            f"collectives {g['collectives']['calls']} a step, "
+            f"{g['collectives']['bytes'] / 2 ** 20:.1f} MiB, "
+            f"{g['collectives']['ms']:.1f} host ms (card synchronized "
+            f"around each)" for r, g in enumerate(results))
+        + f"; the launch {seconds:.1f} s, the ranks' start included "
+        f"({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2965,6 +3409,10 @@ def main() -> int:
     # 14. steps_per_dispatch: K steps a CUDA graph replay
     dispatch = dispatch_main_path(dev, os.path.join(logs, "dispatch"), smi)
     log("dispatch: " + json.dumps(dispatch))
+
+    # 15. tensor parallelism: a 1 × 2 grid over gloo on this card
+    tensor = tp_main_path(dev, os.path.join(logs, "tensor"), smi)
+    log("tensor parallel: " + json.dumps(tensor))
 
     for entry in entries[:-1]:
         entry["launches"] = launches[entry["name"]]

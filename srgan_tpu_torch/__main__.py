@@ -14,7 +14,9 @@ CPU) trains on N ranks: ``Experiment.train()`` spawns them
 (``parallel/launch.py``) under one trial directory, rank 0 writes the
 summaries and checkpoints, and the trained state is restored into this
 process, which evaluates and exports on its own device. With ``--device
-cpu`` the ranks run on the CPU over gloo.
+cpu`` the ranks run on the CPU over gloo. ``--model_parallel_devices M``
+makes them a grid of data × M ranks, the models' channels sharded over
+the M ranks of each data rank (``parallel/tp.py``).
 
 Examples:
   python -m srgan_tpu_torch coefficient --preset coefficient_win
@@ -30,6 +32,7 @@ Examples:
       --crowd_database_path DB --data_parallel_devices 4 \\
       --crowd_shard_dataset true
   python -m srgan_tpu_torch coefficient --device cpu --data_parallel_devices 2
+  python -m srgan_tpu_torch coefficient --device cpu --model_parallel_devices 2
 """
 
 from __future__ import annotations

@@ -270,8 +270,11 @@ class CrowdExperiment(Experiment):
                 shard_bytes(train_arrays[1], lab_n),
                 shard_bytes(train_arrays[2],
                             unl_window or len(self.unlabeled_db))]
-        # The validation split is on every device.
-        db_bytes = sum(train_arrays) + self.validation_db.images.nbytes
+        # The validation split is on every device, and so are this rank's
+        # parameters and Adam moments (its shards under tensor
+        # parallelism).
+        db_bytes = (sum(train_arrays) + self.validation_db.images.nbytes
+                    + self._state_bytes())
         if self.device.type == "cuda":
             limit = torch.cuda.get_device_properties(
                 self.device).total_memory
@@ -300,6 +303,15 @@ class CrowdExperiment(Experiment):
                 f"crowd database needs {db_bytes / 1e9:.1f} GB of the "
                 f"{limit / 1e9:.1f} GB of device memory{assumed}; "
                 f"consider " + ", ".join(hatches), stacklevel=3)
+
+    def _state_bytes(self) -> int:
+        """Bytes of this rank's parameters and their two Adam moments."""
+        if self.state is None:
+            return 0
+        return sum(3 * p.numel() * p.element_size()
+                   for opt in (self.state.d_opt, self.state.g_opt,
+                               self.state.dnn_opt) if opt is not None
+                   for p in opt.params)
 
     def _window_size_for(self, db: CrowdDatabase) -> int:
         """Resident window size for a training split: 0 = fully resident
@@ -472,7 +484,9 @@ class CrowdExperiment(Experiment):
         """Export the training splits as .npy and open the native readers
         (``native/srgan_io.cc``); with one rank, start the prefetchers
         (several ranks gather their shares of the global draws instead,
-        :meth:`_host_epoch_iterators`).
+        :meth:`_host_epoch_iterators`, and so do the model ranks of a
+        grid: a prefetcher's threads deliver its batches in no fixed
+        order, and every model rank must take the same one).
 
         The exports live in a ``native_cache`` beside the database
         (reused across runs: the host tier exists for large splits), or
@@ -519,7 +533,7 @@ class CrowdExperiment(Experiment):
         self._unlabeled_reader = NativeDatasetReader(paths["unlabeled"])
         self._host_io = [self._labeled_reader, self._density_reader,
                          self._unlabeled_reader]
-        if data_axis_size(self.data_parallel) > 1:
+        if self._host_draws_shared:
             return
         # 2·start keeps the two streams' seeds disjoint (11 + 2k odd,
         # 12 + 2k even) and gives a resumed run fresh orders. Image crops
@@ -537,6 +551,14 @@ class CrowdExperiment(Experiment):
         # Prefetchers first: their threads read the readers' maps.
         self._host_io[:0] = [self._labeled_prefetcher,
                              self._unlabeled_prefetcher]
+
+    @property
+    def _host_draws_shared(self) -> bool:
+        """Whether the host tier's ranks gather crops of the global draws
+        (several data ranks, or a model axis) instead of prefetching."""
+        dp = self.data_parallel
+        return data_axis_size(dp) > 1 or (dp is not None
+                                          and dp.model is not None)
 
     def _wrap_host_train_step(self) -> None:
         """The host tier's step: the uint8 crops are normalized and the
@@ -840,20 +862,7 @@ class CrowdExperiment(Experiment):
         through the host) and ``debug_nans`` (anomaly mode
         synchronizes)."""
         settings = self.settings
-        if settings.crowd_host_pipeline:
-            raise ValueError(
-                "steps_per_dispatch > 1 requires the HBM-resident input "
-                "path (crowd_host_pipeline streams host batches one step "
-                "at a time)")
-        if settings.dnn_only:
-            raise ValueError(
-                "steps_per_dispatch > 1 supports the fused GAN step only; "
-                "dnn_only trials dispatch per step")
-        if settings.model_parallel_devices > 1:
-            raise ValueError(
-                "steps_per_dispatch > 1 is not supported with "
-                "model_parallel_devices > 1 (the chunk program replicates "
-                "the train state; use per-step dispatch under tp)")
+        self.check_settings()
         if self.device.type != "cuda":
             self._train_chunk = self._loop_chunk
             return
@@ -874,6 +883,27 @@ class CrowdExperiment(Experiment):
         self._train_chunk = TrainChunk(
             self._run_chunk_steps, settings.steps_per_dispatch, width,
             self.device, self._rng)
+
+    def check_settings(self) -> None:
+        """JAX's refusals of ``steps_per_dispatch`` > 1, with its
+        messages; ``train()`` checks them before it spawns ranks."""
+        settings = self.settings
+        if settings.steps_per_dispatch <= 1:
+            return
+        if settings.crowd_host_pipeline:
+            raise ValueError(
+                "steps_per_dispatch > 1 requires the HBM-resident input "
+                "path (crowd_host_pipeline streams host batches one step "
+                "at a time)")
+        if settings.dnn_only:
+            raise ValueError(
+                "steps_per_dispatch > 1 supports the fused GAN step only; "
+                "dnn_only trials dispatch per step")
+        if settings.model_parallel_devices > 1:
+            raise ValueError(
+                "steps_per_dispatch > 1 is not supported with "
+                "model_parallel_devices > 1 (the chunk program replicates "
+                "the train state; use per-step dispatch under tp)")
 
     def _patch_arg_shapes(self) -> List[Tuple[int, ...]]:
         """The shapes of a step's 8 patch-argument arrays on this rank."""
@@ -1006,8 +1036,8 @@ class CrowdExperiment(Experiment):
         label crops of that share alone: the ranks' host work adds up to
         one rank's."""
         steps = self.steps_per_epoch()
-        args = (None if data_axis_size(self.data_parallel) == 1
-                else self._patch_args_stream())
+        args = (self._patch_args_stream() if self._host_draws_shared
+                else None)
 
         def host_batches():
             for _ in range(steps):
@@ -1156,7 +1186,9 @@ class CrowdExperiment(Experiment):
         use_dnn = self._resolve_use_dnn(use_dnn)
         use_cached_images = db is None or db is self.validation_db
         db = db if db is not None else self.validation_db
-        model = self.state.dnn if use_dnn else self.state.d
+        # Under tensor parallelism the parameters are gathered once a
+        # pass, as JAX's grid evaluator gathers them.
+        model = self.evaluation_model(use_dnn)
         counts_fn = self._grid_counts_fn(db.image_size, use_dnn,
                                          return_maps=return_maps)
         if use_cached_images:

@@ -13,6 +13,13 @@ on the host; ``torch.optim``'s loading puts it back where the restoring
 optimizer keeps it, so a trial saved at one ``steps_per_dispatch``
 resumes at another.
 
+Under tensor parallelism (``parallel/tp.py``) a checkpoint holds the
+full logical tensors, as JAX's Orbax save of global arrays does: the
+snapshot gathers every shard of the parameters and Adam moments over
+the model ranks, and a restore cuts each rank's blocks from the full
+tensors. So a trial saved on a grid restores into one process, and the
+reverse.
+
 The optimizers' hyperparameters (learning rate, betas, decay) are not
 restored: as in the JAX package, where they live in the optax
 transformation and not in its state, a resumed trial takes them from its
@@ -28,6 +35,8 @@ import tempfile
 from typing import Dict, List
 
 import torch
+
+from srgan_tpu_torch.parallel import tp
 
 CHECKPOINT_SUBDIR = "checkpoints"
 STATE_FILE = "state.pt"
@@ -49,9 +58,9 @@ def _structure(module: torch.nn.Module) -> Dict[str, str]:
     paths that tell a flax model with ``GroupNorm_i`` from one with
     ``FusedGroupNormAct_i``."""
     out = {}
-    for key, tensor in module.state_dict().items():
+    for key, tensor in module.state_dict(keep_vars=True).items():
         owner = module.get_submodule(key.rpartition(".")[0])
-        out[key] = (f"{type(owner).__name__} {tuple(tensor.shape)} "
+        out[key] = (f"{type(owner).__name__} {tp.full_shape(tensor)} "
                     f"{tensor.dtype}")
     return out
 
@@ -67,19 +76,31 @@ def _to_host(tree):
     return tree
 
 
-def snapshot(state) -> dict:
-    """The train state copied to host memory: what a checkpoint holds.
-    Blocks until the device→host copies are done, so that the caller may
-    go on updating ``state`` at once."""
-    out = {"step": int(state.step), "structure": {}}
+def gather_state(state) -> dict:
+    """The models' and Adam's full tensors, where they live. Under tensor
+    parallelism a collective over the model ranks, which every model rank
+    of the writer's data rank takes part in."""
+    out = {}
     for name in _MODELS:
         module = getattr(state, name)
         if module is None:
             continue
-        out["structure"][name] = _structure(module)
-        out[name] = _to_host(module.state_dict())
-        out[f"{name}_opt"] = _to_host(
-            getattr(state, f"{name}_opt").adam.state_dict()["state"])
+        opt = getattr(state, f"{name}_opt")
+        out[name] = tp.full_state_dict(module)
+        out[f"{name}_opt"] = tp.full_optimizer_state(opt.adam, opt.params)
+    return out
+
+
+def snapshot(state) -> dict:
+    """The train state copied to host memory: what a checkpoint holds.
+    Blocks until the device→host copies are done, so that the caller may
+    go on updating ``state`` at once. Under tensor parallelism the full
+    tensors (:func:`gather_state`)."""
+    out = _to_host(gather_state(state))
+    out["step"] = int(state.step)
+    out["structure"] = {name: _structure(getattr(state, name))
+                        for name in _MODELS
+                        if getattr(state, name) is not None}
     return out
 
 
@@ -189,11 +210,12 @@ def restore_state(state, path: str):
             f"model_base_width, dnn_use_norm, ...). Differences: "
             f"{'; '.join(differ[:8])}")
     for name in want:
-        getattr(state, name).load_state_dict(snap[name])
-        adam = getattr(state, f"{name}_opt").adam
+        tp.load_full_state_dict(getattr(state, name), snap[name])
+        opt = getattr(state, f"{name}_opt")
         # The moments from the checkpoint, the hyperparameters of now.
-        adam.load_state_dict({"state": snap[f"{name}_opt"],
-                              "param_groups": adam.state_dict()[
-                                  "param_groups"]})
+        opt.adam.load_state_dict({
+            "state": tp.load_full_optimizer_state(snap[f"{name}_opt"],
+                                                  opt.params),
+            "param_groups": opt.adam.state_dict()["param_groups"]})
     state.step = snap["step"]
     return state

@@ -28,9 +28,17 @@ state from the last checkpoint into this process.
 ``torch.profiler`` into ``<trial>/profile/``; ``debug_nans`` turns on
 autograd's anomaly mode for ``train()`` and checks every step's metrics.
 ``steps_per_dispatch`` > 1 runs K steps a dispatch in the crowd app alone
-(``apps/crowd.py``); this class's loop refuses it, as JAX's does. Not
-ported yet (``ROADMAP.md``): the tensor-parallel mesh. A setting that asks
-for it raises ``NotImplementedError`` (:func:`check_supported`).
+(``apps/crowd.py``); this class's loop refuses it, as JAX's does.
+
+Tensor parallelism (``Settings.model_parallel_devices`` = M > 1): the
+ranks form a grid of data × M ranks (``parallel/tp.py``), spawned as for
+data parallelism; ``data_parallel_devices=None`` means
+``max(1, cards // M)`` data ranks (1 on the CPU). Each rank holds its
+blocks of the sharded parameters and Adam moments, the data ranks split
+the batch and the model ranks of a data rank take the same share.
+Checkpoints hold the full logical state (a trial restores on any grid
+or on one process), and ``predict`` gathers the full model once a pass
+and evaluates it replicated.
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from srgan_tpu_torch import checkpoint, metrics
 from srgan_tpu_torch.data.core import (ArrayDataset, cycling_batches,
                                        epoch_batches, prefetch_to_device,
                                        to_device)
+from srgan_tpu_torch.parallel import tp
 from srgan_tpu_torch.parallel.mesh import (DataParallel, barrier,
                                            data_axis_size, gather_rows,
                                            rank_devices)
@@ -59,23 +68,15 @@ from srgan_tpu_torch.utils.device import default_device
 from srgan_tpu_torch.utils.seeding import generator_for, seed_all
 from srgan_tpu_torch.utils.summary import SummaryWriter, make_trial_directory
 
-# Settings of features the port does not run yet, with the value that
-# keeps each one off.
-_UNPORTED = {
-    "model_parallel_devices": 1,
-}
-
 
 def check_supported(settings: Settings) -> None:
-    """Raise ``NotImplementedError`` for a setting the port does not run."""
-    for name, off in _UNPORTED.items():
-        value = getattr(settings, name)
-        if isinstance(off, tuple):
-            value = tuple(value)
-        if value != off:
-            raise NotImplementedError(
-                f"{name}={value!r} is not ported to PyTorch yet (see "
-                f"ROADMAP.md); the port runs {name}={off!r}")
+    """Raise for a setting the port does not run: ``ValueError`` where
+    JAX refuses it too, ``NotImplementedError`` for ``norm_impl="fast"``,
+    which the port leaves out."""
+    model = settings.model_parallel_devices
+    if model < 1:
+        raise ValueError(
+            f"model_parallel_devices must be >= 1, got {model}")
     if settings.norm_impl == "fast":
         raise NotImplementedError(
             "norm_impl='fast' (FastGroupNorm) is not ported to PyTorch; the "
@@ -112,6 +113,13 @@ class Experiment:
                 raise ValueError(
                     f"data_parallel_devices={wanted} but the group has "
                     f"{data_parallel.world_size} ranks")
+            model = (1 if data_parallel.model is None
+                     else data_parallel.model.size)
+            if settings.model_parallel_devices != model:
+                raise ValueError(
+                    f"model_parallel_devices="
+                    f"{settings.model_parallel_devices} but the group has "
+                    f"{model} model ranks")
             device = data_parallel.device if device is None else device
         self.device = torch.device(device) if device is not None \
             else default_device()
@@ -240,8 +248,12 @@ class Experiment:
         """Enqueue a checkpoint of the state at its step: blocks only for
         the device→host copy; the file write overlaps the next steps and
         is joined in :meth:`close`. Rank 0 alone writes (its path is
-        returned; other ranks return None)."""
+        returned; other ranks return None); under tensor parallelism the
+        model ranks of data rank 0 first gather the full state."""
         if not self.is_writer:
+            dp = self.data_parallel
+            if dp.model is not None and dp.rank == 0:
+                checkpoint.gather_state(self.state)  # rank 0's gathers
             return None
         if self._checkpointer is None:
             self._checkpointer = checkpoint.AsyncStateCheckpointer()
@@ -308,9 +320,11 @@ class Experiment:
         here from the last checkpoint (see :meth:`_train_on_ranks`)."""
         settings = self.settings
         check_supported(settings)
+        self.check_settings()
         if self.data_parallel is None:
             devices = rank_devices(settings.data_parallel_devices,
-                                   device=self.device)
+                                   device=self.device,
+                                   model=settings.model_parallel_devices)
             if len(devices) > 1:
                 return self._train_on_ranks(devices)
         set_float32_precision()
@@ -346,12 +360,17 @@ class Experiment:
         process (on its device, without a group) for ``evaluate`` and
         ``predict``."""
         from srgan_tpu_torch.parallel.launch import run_experiment
-        check_batch_divides(self.settings.batch_size, len(devices))
+        model = self.settings.model_parallel_devices
+        check_batch_divides(self.settings.batch_size, len(devices) // model)
         self.trial_directory = make_trial_directory(self.settings)
         run_experiment(type(self), self.settings, devices,
-                       trial_directory=self.trial_directory)
+                       trial_directory=self.trial_directory, model=model)
         self._restore_for_evaluation(self.trial_directory)
         return self.state
+
+    def check_settings(self) -> None:
+        """Raise for settings this app refuses, before any rank is
+        spawned (so that the caller of ``train()`` gets the error)."""
 
     def total_steps(self) -> int:
         """The step the loop trains to: ``epochs_to_run`` epochs, else
@@ -485,8 +504,7 @@ class Experiment:
         host, in chunks of ``batch_size`` (the last one shorter). Under a
         group each chunk, its tail padded with its last example to a
         multiple of the ranks, splits over the ranks and is gathered."""
-        use_dnn = self._resolve_use_dnn(use_dnn)
-        model = self.state.dnn if use_dnn else self.state.d
+        model = self.evaluation_model(use_dnn)
         bs = self.settings.batch_size
         dp = self.data_parallel
         outs = []
@@ -504,6 +522,21 @@ class Experiment:
                     out = gather_rows(out, dp)
                 outs.append(out[:k].cpu().numpy())
         return np.concatenate(outs, axis=0)
+
+    def evaluation_model(self, use_dnn: Optional[bool]) -> torch.nn.Module:
+        """D, or the DNN (``use_dnn``; ``None``: the trial's trained
+        model), as one pass of evaluation runs it: under tensor
+        parallelism an unsharded model of :meth:`model_setup` that loads
+        the full parameters, gathered once (a collective of the model
+        group)."""
+        use_dnn = self._resolve_use_dnn(use_dnn)
+        model = self.state.dnn if use_dnn else self.state.d
+        if tp.module_axis(model) is None:
+            return model
+        bundle = self.model_setup()
+        full = bundle.dnn if use_dnn else bundle.d
+        full.load_state_dict(tp.full_state_dict(model))
+        return full
 
     def validation_summaries(self, epoch: int, step: int) -> None:
         """MAE/RMSE/NVE of D and the DNN on the validation split; D is

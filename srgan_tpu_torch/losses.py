@@ -19,7 +19,9 @@ DataParallel`) every batch mean is over the GLOBAL batch, as JAX's one
 program over a sharded batch takes it: the local sum, all-reduced by
 :func:`~srgan_tpu_torch.parallel.mesh.all_reduce_sum`, over the global
 count. The loss is then the same on every rank. With ``dp=None`` the
-functions are the one-device functions, op for op.
+functions are the one-device functions, op for op. Under tensor
+parallelism the sums run over the data group (``dp.group``), and the
+models hand the losses all features (``models.dcgan.gather_channels``).
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ def batch_mean(x: Tensor, dp: Optional[DataParallel] = None) -> Tensor:
     batch under ``dp``."""
     if dp is None:
         return x.mean(dim=0)
-    return all_reduce_sum(x.sum(dim=0)) / (x.shape[0] * dp.world_size)
+    return (all_reduce_sum(x.sum(dim=0), dp.group)
+            / (x.shape[0] * dp.world_size))
 
 
 def global_mean(local_mean: Tensor,
@@ -47,7 +50,7 @@ def global_mean(local_mean: Tensor,
     (the ranks' shares are equal)."""
     if dp is None:
         return local_mean
-    return all_reduce_sum(local_mean) / dp.world_size
+    return all_reduce_sum(local_mean, dp.group) / dp.world_size
 
 
 def mean_features(features: Tensor,

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from srgan_tpu_torch.models.dcgan import (Conv, DCGANGenerator, group_norm,
+from srgan_tpu_torch.models.dcgan import (Conv, DCGANGenerator,
+                                          gather_channels, group_norm,
                                           norm_act)
 
 
@@ -56,6 +57,7 @@ class JointCNN(nn.Module):
         super().__init__()
         w = base_width
         widths = [w, 2 * w] + [m * w for m in self.TRUNK]
+        self.trunk_width = widths[-1]
         strides = [2, 2] + [1] * len(self.TRUNK)
         self.convs = nn.ModuleList(
             Conv(cin, cout, 3, stride, dtype=dtype, rng=rng)
@@ -88,6 +90,8 @@ class JointCNN(nn.Module):
             x = conv(x)
             x = (norm_act(x, self.norms[i], negative_slope=0.2)
                  if self.norms is not None else F.leaky_relu(x, 0.2))
+        # The heads, the pyramid and the features take all channels.
+        x = gather_channels(self, x, self.trunk_width)
         return _joint_heads(self.context(x), x, self.density_head,
                             self.count_head)
 
@@ -123,6 +127,7 @@ class SpatialPyramidCNN(JointCNN):
     def _make_context(self, channels: int, *, dtype: torch.dtype,
                       rng: torch.Generator) -> int:
         out = channels // len(self.pyramid_levels)
+        self.pyramid_width = out
         self.pyramid = nn.ModuleDict(
             {str(level): Conv(channels, out, 1, dtype=dtype, rng=rng)
              for level in self.levels})
@@ -133,7 +138,8 @@ class SpatialPyramidCNN(JointCNN):
         parts = [trunk]
         for level in self.levels:
             pooled = F.avg_pool2d(trunk, (h // level, w // level))
-            proj = self.pyramid[str(level)](pooled)
+            proj = gather_channels(self, self.pyramid[str(level)](pooled),
+                                   self.pyramid_width)
             parts.append(proj.repeat_interleave(h // level, dim=2)
                          .repeat_interleave(w // level, dim=3))
         return torch.cat(parts, dim=1)

@@ -147,18 +147,25 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, c, h, w = x.shape
-        g = self.num_groups
-        # Splitting C into (G, C/G) is a view in either memory format.
-        xf = x.float().reshape(b, g, c // g, h, w)
-        axes = (2, 3, 4)
-        mean = xf.mean(dim=axes, keepdim=True)
-        var = (xf.square().mean(dim=axes, keepdim=True)
-               - mean.square()).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.epsilon) * self.scale.view(
-            1, g, c // g, 1, 1)
-        y = (xf - mean) * mul + self.bias.view(1, g, c // g, 1, 1)
-        return y.reshape(b, c, h, w).to(self.dtype)
+        return group_norm_nchw(x, self.scale, self.bias, self.num_groups,
+                               self.epsilon, self.dtype)
+
+
+def group_norm_nchw(x: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor, groups: int, epsilon: float,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """:class:`GroupNorm`'s computation with the given parameters."""
+    b, c, h, w = x.shape
+    g = groups
+    # Splitting C into (G, C/G) is a view in either memory format.
+    xf = x.float().reshape(b, g, c // g, h, w)
+    axes = (2, 3, 4)
+    mean = xf.mean(dim=axes, keepdim=True)
+    var = (xf.square().mean(dim=axes, keepdim=True)
+           - mean.square()).clamp_min(0.0)
+    mul = torch.rsqrt(var + epsilon) * scale.view(1, g, c // g, 1, 1)
+    y = (xf - mean) * mul + bias.view(1, g, c // g, 1, 1)
+    return y.reshape(b, c, h, w).to(dtype)
 
 
 def group_norm(width: int, dtype: torch.dtype, impl: str = "xla",
@@ -175,19 +182,47 @@ def group_norm(width: int, dtype: torch.dtype, impl: str = "xla",
     return GroupNorm(width, min(max_groups, width), dtype=dtype)
 
 
+def activation(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """LeakyReLU(``negative_slope``); slope 0 is ReLU."""
+    return (F.leaky_relu(x, negative_slope) if negative_slope
+            else F.relu(x))
+
+
 def norm_act(x: torch.Tensor, norm: nn.Module,
              negative_slope: float = 0.0) -> torch.Tensor:
     """GroupNorm + LeakyReLU(``negative_slope``); slope 0 is ReLU.
 
-    A :class:`FusedGroupNormAct` applies the activation in its kernel,
-    before the cast to the compute dtype; the composite :class:`GroupNorm`
-    casts first, and the activation follows.
+    A norm of a tensor-parallel model (``parallel/tp.py``) runs through
+    the hook that sharding set on it, which sees whether ``x`` is this
+    rank's block of channels or all of them.
     """
+    hook = getattr(norm, "model_shard_hook", None)
+    if hook is not None:
+        return hook(x, negative_slope)
+    return run_norm_act(x, norm, negative_slope)
+
+
+def run_norm_act(x: torch.Tensor, norm: nn.Module,
+                 negative_slope: float = 0.0) -> torch.Tensor:
+    """:func:`norm_act` of ``norm`` as it stands. A
+    :class:`FusedGroupNormAct` applies the activation in its kernel,
+    before the cast to the compute dtype; the composite :class:`GroupNorm`
+    casts first, and the activation follows."""
     if isinstance(norm, FusedGroupNormAct):
         return norm(x, negative_slope)
-    x = norm(x)
-    return (F.leaky_relu(x, negative_slope) if negative_slope
-            else F.relu(x))
+    return activation(norm(x), negative_slope)
+
+
+def gather_channels(module: nn.Module, x: torch.Tensor, channels: int,
+                    dim: int = 1) -> torch.Tensor:
+    """``x`` with all its ``channels`` along ``dim``: where a layer of a
+    tensor-parallel model (``parallel/tp.py``) left this rank's block of
+    them, the blocks gathered over the model axis; else ``x`` itself. A
+    model calls it where it needs all channels of an activation."""
+    axis = getattr(module, "model_axis", None)
+    if axis is None or x.shape[dim] == channels:
+        return x
+    return axis.gather(x, dim)
 
 
 def generator_geometry(image_size: int) -> Tuple[int, int, int]:
@@ -226,6 +261,7 @@ class DCGANGenerator(nn.Module):
                  rng: torch.Generator):
         super().__init__()
         self.image_size = image_size
+        self.channels = channels
         self.dtype = dtype
         self.start, num_ups, self.size = generator_geometry(image_size)
         self.width = base_width * (2 ** (num_ups - 1))
@@ -246,7 +282,10 @@ class DCGANGenerator(nn.Module):
             width = out_width
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.dense(z)
+        # Under tensor parallelism the Dense's (h, w, c) features are
+        # sharded in blocks of rows, not of channels: gathered first.
+        x = gather_channels(self, self.dense(z),
+                            self.start * self.start * self.width, dim=-1)
         # The flax Dense output is reshaped NHWC; the permute makes it NCHW
         # in channels_last memory without a copy.
         x = x.view(x.shape[0], self.start, self.start,
@@ -256,6 +295,7 @@ class DCGANGenerator(nn.Module):
             x = deconv(x)
             if i + 1 < len(self.norms):
                 x = norm_act(x, self.norms[i + 1])
+        x = gather_channels(self, x, self.channels)
         if self.size != self.image_size:
             m = (self.size - self.image_size) // 2
             x = x[:, :, m:m + self.image_size, m:m + self.image_size]
@@ -297,6 +337,8 @@ class ConvRegressor(nn.Module):
             for cin, cout in zip([channels] + widths, widths))
         self.norms = nn.ModuleList(group_norm(w, dtype, norm_impl)
                                    for w in widths)
+        self.widths = widths
+        self.feature_size = feature_size
         side = image_size
         for _ in widths:
             side = -(-side // 2)  # SAME, stride 2
@@ -309,6 +351,8 @@ class ConvRegressor(nn.Module):
         x = images
         for conv, norm in zip(self.convs, self.norms):
             x = norm_act(conv(x), norm, negative_slope=0.2)
+        x = gather_channels(self, x, self.widths[-1])
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
-        features = F.leaky_relu(self.dense(x), 0.2)
+        features = gather_channels(self, F.leaky_relu(self.dense(x), 0.2),
+                                   self.feature_size, dim=-1)
         return self.head(features).squeeze(-1).float(), features.float()

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from srgan_tpu_torch.models.dcgan import Dense
+from srgan_tpu_torch.models.dcgan import Dense, gather_channels
 
 _SLOPE = 0.01  # flax.linen.leaky_relu's default
 
@@ -32,6 +32,7 @@ class CoefficientGenerator(nn.Module):
                  observation_count: int = 10, hidden_size: int = 10, *,
                  dtype: torch.dtype = torch.float32, rng: torch.Generator):
         super().__init__()
+        self.observation_count = observation_count
         self.layers = _layers((latent_dimension, hidden_size, hidden_size,
                                observation_count), dtype, rng)
 
@@ -39,7 +40,8 @@ class CoefficientGenerator(nn.Module):
         x = z
         for layer in self.layers[:-1]:
             x = F.leaky_relu(layer(x), _SLOPE)
-        return self.layers[-1](x).float()
+        return gather_channels(self, self.layers[-1](x),
+                               self.observation_count, dim=-1).float()
 
 
 class CoefficientMLP(nn.Module):
@@ -52,6 +54,7 @@ class CoefficientMLP(nn.Module):
                  dtype: torch.dtype = torch.float32, rng: torch.Generator):
         super().__init__()
         self.output_size = output_size
+        self.hidden_size = hidden_size
         self.layers = _layers((observation_count, hidden_size, hidden_size,
                                output_size), dtype, rng)
 
@@ -60,7 +63,9 @@ class CoefficientMLP(nn.Module):
         x = observations
         for layer in self.layers[:-1]:
             x = F.leaky_relu(layer(x), _SLOPE)
-        prediction = self.layers[-1](x)
+        x = gather_channels(self, x, self.hidden_size, dim=-1)
+        prediction = gather_channels(self, self.layers[-1](x),
+                                     self.output_size, dim=-1)
         if self.output_size == 1:
             prediction = prediction.squeeze(-1)
         return prediction.float(), x.float()

@@ -1,9 +1,10 @@
-"""Spawn the ranks of a data-parallel run and join them.
+"""Spawn the ranks of a data-parallel or data × model run and join them.
 
 :func:`launch` starts one process a rank (``torch.multiprocessing``,
 ``spawn``), each of which joins the group (:func:`~srgan_tpu_torch.
-parallel.mesh.make_mesh`, a ``file://`` store in a new directory: the
-caller's, or a temporary one) and calls ``fn(dp, *args)``; it joins
+parallel.tp.make_grid`: the data-parallel group, or with ``model`` > 1
+the grid of data × model ranks; a ``file://`` store in a new directory:
+the caller's, or a temporary one) and calls ``fn(dp, *args)``; it joins
 them within a time limit and returns their results by rank. A rank that raises or dies ends the
 others and raises here; so does the time limit.
 
@@ -28,15 +29,16 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from srgan_tpu_torch.parallel.mesh import (COLLECTIVE_TIMEOUT_S,
-                                           DataParallel, make_mesh)
+                                           DataParallel)
+from srgan_tpu_torch.parallel.tp import make_grid
 
 
 def _rank_main(rank: int, fn: Callable, devices: Sequence[torch.device],
-               directory: str, collective_timeout_s: float,
+               model: int, directory: str, collective_timeout_s: float,
                threads: Optional[int], args: tuple) -> None:
     if threads:
         torch.set_num_threads(threads)
-    dp = make_mesh(devices=devices, rank=rank,
+    dp = make_grid(len(devices) // model, model, devices, rank,
                    init_file=os.path.join(directory, "store"),
                    timeout_s=collective_timeout_s)
     try:
@@ -58,12 +60,13 @@ def _stop(processes) -> None:
 
 
 def launch(fn: Callable[..., Any], devices: Sequence, args: tuple = (), *,
-           timeout_s: Optional[float] = None,
+           model: int = 1, timeout_s: Optional[float] = None,
            collective_timeout_s: float = COLLECTIVE_TIMEOUT_S,
            threads: Optional[int] = None,
            directory: Optional[str] = None) -> List[Any]:
     """``fn(dp, *args)`` on one spawned process per entry of ``devices``;
-    their results, by rank.
+    their results, by rank. With ``model`` > 1 the ranks form a grid of
+    ``len(devices) / model`` data × ``model`` model ranks.
 
     ``fn`` and ``args`` are pickled (``fn`` by its import path).
     ``timeout_s`` bounds the whole run (``None``: no bound); a collective
@@ -80,8 +83,8 @@ def launch(fn: Callable[..., Any], devices: Sequence, args: tuple = (), *,
         else:
             os.makedirs(directory)
         context = mp.start_processes(
-            _rank_main, args=(fn, devices, directory, collective_timeout_s,
-                              threads, args),
+            _rank_main, args=(fn, devices, model, directory,
+                              collective_timeout_s, threads, args),
             nprocs=len(devices), join=False, start_method="spawn")
         try:
             while True:
@@ -116,7 +119,7 @@ def run_experiment(experiment_cls, settings, devices: Sequence,
                    action: Callable = train_action,
                    action_args: tuple = (),
                    trial_directory: Optional[str] = None, *,
-                   timeout_s: Optional[float] = None,
+                   model: int = 1, timeout_s: Optional[float] = None,
                    collective_timeout_s: float = COLLECTIVE_TIMEOUT_S,
                    threads: Optional[int] = None,
                    directory: Optional[str] = None) -> List[Any]:
@@ -127,6 +130,6 @@ def run_experiment(experiment_cls, settings, devices: Sequence,
     return launch(_run_action, devices,
                   (experiment_cls, settings, action, trial_directory,
                    action_args),
-                  timeout_s=timeout_s,
+                  model=model, timeout_s=timeout_s,
                   collective_timeout_s=collective_timeout_s,
                   threads=threads, directory=directory)

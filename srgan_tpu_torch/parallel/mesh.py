@@ -18,6 +18,10 @@ the code says where to reduce:
   rank's gradient of the replicated loss is W times its share of the
   true gradient at every order (the penalty's double backward included).
 
+With a model axis (``parallel/tp.py``) the batch's collectives run in
+the data group of this rank's model rank (``DataParallel.group``), and
+``rank`` / ``world_size`` count the data ranks.
+
 Only ``all_reduce``, ``broadcast`` and ``barrier`` are used, the
 collectives that both NCCL and gloo run on CUDA tensors; a gather is a
 sum all-reduce of zero-padded slices (:func:`gather_rows`). The group is
@@ -49,19 +53,29 @@ BUCKET_BYTES = 32 * 2 ** 20
 
 @dataclasses.dataclass(frozen=True)
 class DataParallel:
-    """This process's place in the data-parallel group: its rank, the
-    number of ranks, its device and a gloo group for host-side agreements
-    (:func:`all_ranks_agree`; ``None`` where the default group is gloo).
-    The collectives run in the default group."""
+    """This process's place in the data-parallel group: its rank along
+    the batch, the number of such ranks, its device and a gloo group of
+    every process for host-side agreements (:func:`all_ranks_agree`;
+    ``None`` where the default group is gloo).
+
+    The batch's collectives run in ``group``: ``None``, the default
+    group, unless the ranks also form a model axis (``model``, a
+    :class:`~srgan_tpu_torch.parallel.tp.ModelAxis`), where ``group``
+    holds the ranks of this rank's model rank and ``global_rank`` is the
+    process's rank in the default group (``parallel/tp.py``)."""
     rank: int
     world_size: int
     device: torch.device
     host_group: Optional[dist.ProcessGroup] = None
+    group: Optional[dist.ProcessGroup] = None
+    model: Optional[object] = None
+    global_rank: Optional[int] = None
 
     @property
     def is_writer(self) -> bool:
-        """Rank 0 alone writes summaries, checkpoints and exports."""
-        return self.rank == 0
+        """Process 0 alone writes summaries, checkpoints and exports."""
+        return (self.rank if self.global_rank is None
+                else self.global_rank) == 0
 
     def share(self, n: int) -> slice:
         """This rank's rows of a global batch of ``n``."""
@@ -79,42 +93,50 @@ def data_axis_size(dp: Optional[DataParallel]) -> int:
 
 def rank_devices(num_devices: Optional[int] = None,
                  devices: Optional[Sequence] = None,
-                 device: Optional[torch.device | str] = None
-                 ) -> List[torch.device]:
-    """The ranks' devices, one a rank.
+                 device: Optional[torch.device | str] = None,
+                 model: int = 1) -> List[torch.device]:
+    """The ranks' devices, one a rank: ``num_devices`` data ranks times
+    ``model`` model ranks, in rank order (data-major: rank d·model + m).
 
     ``devices`` is taken as given: it may name one card twice (two ranks
     on one card run over gloo). Otherwise, on the CPU (``device`` of type
-    cpu) ``num_devices`` ranks on the CPU, ``None`` meaning 1; on CUDA the
-    first ``num_devices`` cards, ``None`` meaning every visible card, and
-    more than there are raises."""
+    cpu) ``num_devices`` data ranks on the CPU, ``None`` meaning 1; on
+    CUDA the first ``num_devices · model`` cards, ``None`` meaning
+    ``max(1, cards // model)`` data ranks (JAX's ``prepare_mesh``), and
+    more ranks than cards raises."""
+    if model < 1:
+        raise ValueError(f"model_parallel_devices must be >= 1, got {model}")
     if devices is not None:
         # A card named without an index is card 0, as ``torch.device``
         # allocates on it.
         devices = [torch.device("cuda", 0) if torch.device(d) ==
                    torch.device("cuda") else torch.device(d)
                    for d in devices]
-        if num_devices is not None and num_devices != len(devices):
-            raise ValueError(f"data_parallel_devices={num_devices} but "
-                             f"{len(devices)} devices were named")
+        if len(devices) % model or (num_devices is not None and
+                                    num_devices * model != len(devices)):
+            raise ValueError(
+                f"data_parallel_devices={num_devices} × "
+                f"model_parallel_devices={model} but {len(devices)} "
+                f"devices were named")
         return devices
     if device is not None and torch.device(device).type != "cuda":
-        return [torch.device(device)] * (1 if num_devices is None
-                                         else num_devices)
+        return [torch.device(device)] * ((1 if num_devices is None
+                                          else num_devices) * model)
     count = torch.cuda.device_count()
     if count == 0:
         raise RuntimeError(
             "no CUDA device (torch.cuda.is_available() is False); pass "
             "device=\"cpu\" to run on the CPU")
-    n = count if num_devices is None else num_devices
+    n = max(1, count // model) if num_devices is None else num_devices
     if n < 1:
         raise ValueError(f"data_parallel_devices must be >= 1, got {n}")
-    if n > count:
+    if n * model > count:
         raise ValueError(
-            f"data_parallel_devices={n} exceeds the {count} visible CUDA "
-            f"card(s); name the devices (devices=[...]) to put several "
-            f"ranks on one card, which runs over gloo")
-    return [torch.device("cuda", i) for i in range(n)]
+            f"data_parallel_devices={n} × model_parallel_devices={model} "
+            f"exceeds the {count} visible CUDA card(s); name the devices "
+            f"(devices=[...]) to put several ranks on one card, which "
+            f"runs over gloo")
+    return [torch.device("cuda", i) for i in range(n * model)]
 
 
 def backend_for(devices: Sequence[torch.device]) -> str:
@@ -125,6 +147,25 @@ def backend_for(devices: Sequence[torch.device]) -> str:
     return "nccl" if cuda and distinct else "gloo"
 
 
+def init_world(devices: Sequence[torch.device], rank: int, init_file: str,
+               timeout_s: float) -> Optional[dist.ProcessGroup]:
+    """Join the default group of ``len(devices)`` processes as ``rank``
+    through the ``file://`` store ``init_file`` (a path no earlier group
+    used), on ``devices[rank]``; returns the gloo host group (``None``
+    where the default group is gloo)."""
+    world = len(devices)
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} of a world of {world}")
+    if devices[rank].type == "cuda":
+        torch.cuda.set_device(devices[rank])
+    backend = backend_for(devices)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            world_size=world, rank=rank, timeout=timeout)
+    return (None if backend == "gloo"
+            else dist.new_group(backend="gloo", timeout=timeout))
+
+
 def make_mesh(num_devices: Optional[int] = None,
               devices: Optional[Sequence] = None, *, rank: int = 0,
               init_file: str,
@@ -133,20 +174,9 @@ def make_mesh(num_devices: Optional[int] = None,
     ``len(rank_devices(num_devices, devices))`` ranks, through the
     ``file://`` store ``init_file`` (a path no earlier group used)."""
     devices = rank_devices(num_devices, devices)
-    world = len(devices)
-    if not 0 <= rank < world:
-        raise ValueError(f"rank {rank} of a world of {world}")
-    device = devices[rank]
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    backend = backend_for(devices)
-    timeout = datetime.timedelta(seconds=timeout_s)
-    dist.init_process_group(backend, init_method=f"file://{init_file}",
-                            world_size=world, rank=rank, timeout=timeout)
-    host_group = (None if backend == "gloo"
-                  else dist.new_group(backend="gloo", timeout=timeout))
-    return DataParallel(rank=rank, world_size=world, device=device,
-                        host_group=host_group)
+    host_group = init_world(devices, rank, init_file, timeout_s)
+    return DataParallel(rank=rank, world_size=len(devices),
+                        device=devices[rank], host_group=host_group)
 
 
 # ------------------------------------------------------------ collectives
@@ -156,29 +186,33 @@ class _AllReduceSum(torch.autograd.Function):
     the same order on every rank."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         out = x.contiguous().clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``Σ_ranks x``, the same on every rank, differentiable to any
-    order (the backward sums the ranks' cotangents)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor,
+                   group: Optional[dist.ProcessGroup] = None
+                   ) -> torch.Tensor:
+    """``Σ_ranks x`` over ``group`` (default: every process), the same on
+    every rank, differentiable to any order (the backward sums the
+    ranks' cotangents)."""
+    return _AllReduceSum.apply(x, group)
 
 
 def gather_rows(local: torch.Tensor, dp: DataParallel) -> torch.Tensor:
-    """The ranks' equal blocks of rows, concatenated in rank order on
-    every rank: a sum all-reduce of zero-padded slices."""
+    """The data ranks' equal blocks of rows, concatenated in rank order
+    on every rank: a sum all-reduce of zero-padded slices."""
     n = local.shape[0]
     out = local.new_zeros((n * dp.world_size,) + tuple(local.shape[1:]))
     out[dp.rank * n:(dp.rank + 1) * n] = local
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=dp.group)
     return out
 
 
@@ -201,13 +235,13 @@ def _buckets(tensors: Sequence[torch.Tensor], limit: int):
 
 def average_gradients(grads: Sequence[torch.Tensor], dp: DataParallel
                       ) -> Tuple[torch.Tensor, ...]:
-    """The mean over the ranks of each gradient, all-reduced in flat
-    buckets of at most ``BUCKET_BYTES``; every rank gets the same
-    bytes."""
+    """The mean over the data ranks of each gradient, all-reduced in flat
+    buckets of at most ``BUCKET_BYTES``; every rank of the data group
+    gets the same bytes."""
     out: List[Optional[torch.Tensor]] = [None] * len(grads)
     for run in _buckets(grads, BUCKET_BYTES):
         flat = torch.cat([grads[i].reshape(-1) for i in run])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=dp.group)
         flat.div_(dp.world_size)
         for i, part in zip(run, flat.split([grads[i].numel()
                                             for i in run])):
@@ -216,7 +250,7 @@ def average_gradients(grads: Sequence[torch.Tensor], dp: DataParallel
 
 
 def broadcast_module(module: torch.nn.Module) -> None:
-    """Rank 0's parameters and buffers, in place on every rank."""
+    """Process 0's parameters and buffers, in place on every process."""
     with torch.no_grad():
         for t in list(module.parameters()) + list(module.buffers()):
             dist.broadcast(t.data, src=0)

@@ -3,10 +3,9 @@
 The same dataclass as ``srgan_tpu.settings.Settings``: every field keeps
 its name and default, so one configuration drives either package. The
 comments on each field live with the JAX package; the ones here say what
-the PyTorch port does with it. Fields of features the port does not run
-yet are kept so that configurations stay interchangeable; the experiment
-raises ``NotImplementedError`` when one of them is set away from its
-default (``srgan_tpu_torch.experiment.check_supported``).
+the PyTorch port does with it. The one value the port does not run,
+``norm_impl="fast"``, raises ``NotImplementedError``
+(``srgan_tpu_torch.experiment.check_supported``).
 """
 
 from __future__ import annotations
@@ -81,6 +80,8 @@ class Settings:
     norm_impl: str = "xla"
 
     # ------------------------------------------------------------ parallelism
+    # Data ranks (None: every visible card, or max(1, cards // model) with
+    # model ranks; 1 on the CPU) × model ranks (parallel/tp.py).
     data_parallel_devices: Optional[int] = None
     model_parallel_devices: int = 1
 

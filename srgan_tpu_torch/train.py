@@ -26,6 +26,14 @@ penalty's inner input gradient is taken with a cotangent of 1/W, so that
 its norm is the example's true gradient norm. z_d, α and z_g are drawn
 for the global batch from the same generator on every rank, each rank
 taking its rows: a W-rank run consumes the one-rank run's draws.
+
+Under tensor parallelism (a ``dp`` with a model axis, ``parallel/tp.py``)
+W counts the data ranks; the models are sharded over the model ranks
+of each data rank, which take the same batch and draws. Their layers
+place the model axis's collectives themselves, D's first layer included,
+so the penalty's input gradient is already summed over the model ranks
+when it reaches the loss. Gradients are averaged over the data ranks
+only: a sharded parameter's gradient is its block of the whole one.
 """
 
 from __future__ import annotations
@@ -34,9 +42,11 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from srgan_tpu_torch import losses
+from srgan_tpu_torch.parallel import tp
 from srgan_tpu_torch.parallel.mesh import (DataParallel, average_gradients,
                                            broadcast_module)
 from srgan_tpu_torch.settings import Settings
@@ -85,7 +95,9 @@ class Optimizer:
     optax's ``clip_by_global_norm`` scales the gradients by
     ``max_norm / norm`` when ``norm > max_norm``, with no ε, which is what
     :meth:`step` does (``clip_grad_norm_`` would divide by norm + 1e-6).
-    Under ``dp`` the gradients are first averaged over the ranks.
+    Under ``dp`` the gradients are first averaged over the data ranks;
+    with a model axis the global norm counts each replicated gradient
+    once and sums the sharded ones' squares over the model ranks.
 
     On a card with ``steps_per_dispatch`` > 1 Adam is ``capturable``: its
     step counts and bias corrections live on the card, so that a CUDA
@@ -97,6 +109,7 @@ class Optimizer:
                  weight_decay: bool, dp: Optional[DataParallel] = None):
         self.params = params
         self.dp = dp
+        self.sharded = [tp.shard_of(p) is not None for p in params]
         self.clip_norm = settings.gradient_clip_norm
         capturable = (settings.steps_per_dispatch > 1
                       and params[0].device.type == "cuda")
@@ -113,7 +126,7 @@ class Optimizer:
         if self.dp is not None:
             grads = average_gradients(grads, self.dp)
         if self.clip_norm > 0.0:
-            norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+            norm = torch.sqrt(self._squared_norm(grads))
             factor = torch.where(norm < self.clip_norm,
                                  torch.ones_like(norm),
                                  self.clip_norm / norm)
@@ -121,6 +134,17 @@ class Optimizer:
         for p, g in zip(self.params, grads):
             p.grad = g
         self.adam.step()
+
+    def _squared_norm(self, grads: Tuple[Tensor, ...]) -> Tensor:
+        axis = None if self.dp is None else self.dp.model
+        if axis is None or not any(self.sharded):
+            return sum(g.float().square().sum() for g in grads)
+        squares = [g.float().square().sum() for g in grads]
+        sharded = torch.stack([s for s, on in zip(squares, self.sharded)
+                               if on]).sum()
+        dist.all_reduce(sharded, group=axis.group)
+        replicated = [s for s, on in zip(squares, self.sharded) if not on]
+        return sharded + (sum(replicated) if replicated else 0.0)
 
 
 def make_optimizer(settings: Settings, params, weight_decay: bool = False,
@@ -136,11 +160,15 @@ def make_optimizer(settings: Settings, params, weight_decay: bool = False,
 def init_train_state(settings: Settings, models: ModelBundle,
                      dp: Optional[DataParallel] = None) -> SRGANTrainState:
     """The models and their optimizers; under ``dp`` the models are
-    first broadcast from rank 0, so that every rank starts alike."""
+    first broadcast from process 0, so that every rank starts alike, and
+    with a model axis then sharded (each rank keeping its blocks of
+    process 0's full tensors) before their optimizers are made."""
     modules = [m for m in (models.d, models.g, models.dnn) if m is not None]
     if dp is not None:
         for module in modules:
             broadcast_module(module)
+            if dp.model is not None:
+                tp.shard_module(module, dp.model)
     return SRGANTrainState(
         step=0,
         d=models.d, d_opt=make_optimizer(settings, models.d.parameters(),

@@ -353,10 +353,14 @@ def test_what_jax_refuses_is_refused(tmp_path, app):
         experiment.train()
 
 
-def test_model_parallel_devices_is_still_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError,
-                       match="model_parallel_devices=2 is not ported"):
-        CrowdExperiment(_settings(tmp_path, model_parallel_devices=2),
+def test_chunks_under_tensor_parallelism_are_refused(tmp_path):
+    """JAX's rule: ``steps_per_dispatch`` > 1 with
+    ``model_parallel_devices`` > 1 raises its ``ValueError``, before any
+    rank is spawned."""
+    with pytest.raises(ValueError, match=r"steps_per_dispatch > 1 is not "
+                       r"supported with model_parallel_devices > 1"):
+        CrowdExperiment(_settings(tmp_path, model_parallel_devices=2,
+                                  steps_per_dispatch=2),
                         device="cpu").train()
 
 

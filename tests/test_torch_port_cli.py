@@ -306,7 +306,8 @@ def test_the_new_modules_import_no_jax():
             "srgan_tpu_torch.apps.coefficient, srgan_tpu_torch.apps.age, "
             "srgan_tpu_torch.apps.driving, srgan_tpu_torch.data.window, "
             "srgan_tpu_torch.io.native, srgan_tpu_torch.models.crowd, "
-            "srgan_tpu_torch.apps.crowd, srgan_tpu_torch.utils.cuda_graph; "
+            "srgan_tpu_torch.apps.crowd, srgan_tpu_torch.utils.cuda_graph, "
+            "srgan_tpu_torch.parallel.tp; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'PIL', 'scipy', "
             "'srgan_tpu')); print(bad); sys.exit(1 if bad else 0)")

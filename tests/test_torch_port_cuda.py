@@ -855,3 +855,74 @@ def test_a_checkpoint_moves_between_k2_and_k1(tmp_path):
         assert {float(s["step"]) for s in state.d_opt.adam.state.values()
                 } == {float(steps)}
         trial = exp.trial_directory
+
+
+# Tensor parallelism on the card, small versions of chip_smoke.py's phase
+# 15: a grid of data 1 × model 2 over gloo on cuda:0 named twice, float32.
+# The trained models are held to one rank by JAX's tolerances (the losses
+# rtol 5e-4, atol 5e-5; the parameters 2.1·lr a step, Adam's sign noise);
+# a sharded conv → fused norm → conv block to its unsharded self, the
+# norm kernels launched at the sharded shape.
+def test_tensor_parallel_ranks_train_as_one_rank(tmp_path):
+    import torch_dp_workers as workers
+    from srgan_tpu_torch import CrowdExperiment, Settings
+    from srgan_tpu_torch.parallel import launch
+
+    settings = Settings(**dict(DP_TINY, logs_directory=str(tmp_path),
+                               data_parallel_devices=1,
+                               model_parallel_devices=2))
+    results = launch.run_experiment(
+        CrowdExperiment, settings, ["cuda:0", "cuda:0"],
+        action=workers.tp_trained_models, model=2,
+        trial_directory=str(tmp_path / "grid"), timeout_s=300,
+        collective_timeout_s=120, directory=str(tmp_path / "store"))
+    one = CrowdExperiment(settings.copy(model_parallel_devices=1,
+                                        trial_name="one"), device="cuda")
+    state = one.train()
+    bound = 2.1 * settings.learning_rate * settings.steps_to_run
+    for got in results:
+        assert got["step"] == settings.steps_to_run
+        for name in ("d", "g", "dnn"):
+            for k, v in got[name].items():
+                want = getattr(state, name).state_dict()[k].cpu()
+                assert float((v - want).abs().max()) <= bound, (name, k)
+    for name in ("d", "g", "dnn"):
+        for k, v in results[0][name].items():
+            assert torch.equal(v, results[1][name][k]), (name, k)
+    one.close()
+
+
+def test_tensor_parallel_block_runs_the_kernels_at_sharded_shapes(
+        tmp_path):
+    import torch_dp_workers as workers
+    from srgan_tpu_torch.parallel import launch
+
+    results = launch.launch(
+        workers.tp_block, ["cuda:0", "cuda:0"],
+        (3, 96, 6, 32, "pallas", 7, "cuda"), model=2, timeout_s=300,
+        collective_timeout_s=120, directory=str(tmp_path / "store"))
+    for got in results:
+        assert (got["local_width"], got["local_groups"]) == (48, 16)
+        for key in ("y", "gx", "penalty"):
+            torch.testing.assert_close(got["got"][key], got["want"][key],
+                                       rtol=1e-5, atol=1e-5)
+        for k, g in got["want"]["grads"].items():
+            torch.testing.assert_close(got["got"]["grads"][k], g,
+                                       rtol=1e-5, atol=1e-5)
+    # The kernels at the sharded shape [B, HW, C/2] with G/2 groups
+    # against their plain versions.
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((4, 64, 48), generator=gen, device="cuda")
+    dy = torch.randn_like(x)
+    scale = torch.rand(48, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(48, generator=gen, device="cuda")
+    y, mean, rstd = fn._launch_fwd(x, scale, bias, 16, 0.2, 1e-6)
+    dx, dscale, dbias = fn._launch_bwd(x, scale, bias, mean, rstd, dy, 16,
+                                       0.2)
+    want = fn.group_norm_act_fwd_plain(x, scale, bias, 16, 0.2, 1e-6)
+    for a, b in zip((y, mean, rstd), want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    want = fn.group_norm_act_bwd_plain(x, scale, bias, mean, rstd, dy, 16,
+                                       0.2)
+    for a, b in zip((dx, dscale, dbias), want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

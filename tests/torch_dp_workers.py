@@ -1,4 +1,5 @@
-"""Rank workers of ``tests/test_torch_port_parallel.py``.
+"""Rank workers of ``tests/test_torch_port_parallel.py`` and
+``tests/test_torch_port_tensor_parallel.py``.
 
 The port's launcher (``srgan_tpu_torch.parallel.launch``) spawns the
 ranks, which import this module by name: it imports no JAX, so that a
@@ -7,6 +8,7 @@ rank loads only PyTorch and the port. Each worker takes the rank's
 process) and returns plain tensors and arrays.
 """
 
+import copy
 import time
 
 import numpy as np
@@ -16,6 +18,9 @@ import torch.distributed as dist
 from srgan_tpu_torch.apps.coefficient import CoefficientExperiment
 from srgan_tpu_torch.apps.crowd import CrowdExperiment
 from srgan_tpu_torch.experiment import model_layout
+from srgan_tpu_torch.models.dcgan import (Conv, gather_channels, group_norm,
+                                          norm_act)
+from srgan_tpu_torch.parallel import tp
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.train import (init_train_state, make_dnn_train_step,
                                    make_gan_train_step)
@@ -268,3 +273,145 @@ def train_chunked(dp, settings_kw, trial_directory):
                           data_parallel=dp)
     exp.given_trial_directory = trial_directory
     return trained_models(exp)
+
+
+# ------------------------------------------------- tensor parallelism
+def _full_models(state):
+    """Each model's full parameters and Adam moments on this rank: the
+    shards gathered over the model ranks (a collective)."""
+    out = {}
+    for name in ("d", "g", "dnn"):
+        module, opt = getattr(state, name), getattr(state, f"{name}_opt")
+        out[name] = {k: v.cpu() for k, v in
+                     tp.full_state_dict(module).items()}
+        out[f"{name}_opt"] = {
+            i: {k: v.cpu() for k, v in entry.items()} for i, entry in
+            tp.full_optimizer_state(opt.adam, opt.params).items()}
+    return out
+
+
+def _moments(state, full, names=("d", "g", "dnn")):
+    """Each model's full Adam moments by parameter name, from
+    :func:`_full_models`' ``full``: after one step, the clipped and
+    averaged gradient g as ``exp_avg`` = (1 − β1)·g and ``exp_avg_sq`` =
+    (1 − β2)·g²."""
+    out = {}
+    for name in names:
+        opt = full[f"{name}_opt"]
+        out[name] = {k: {m: opt[i][m] for m in ("exp_avg", "exp_avg_sq")}
+                     for i, (k, _) in enumerate(
+                         getattr(state, name).named_parameters())}
+    return out
+
+
+def _local_shapes(state):
+    """This rank's shapes of each model's parameters and Adam moments."""
+    out = {}
+    for name in ("d", "g", "dnn"):
+        opt = getattr(state, f"{name}_opt")
+        names = [k for k, _ in getattr(state, name).named_parameters()]
+        out[name] = {k: tuple(p.shape) for k, p in
+                     getattr(state, name).named_parameters()}
+        out[f"{name}_opt"] = {
+            names[i]: {k: tuple(v.shape) for k, v in entry.items()
+                       if k != "step"}
+            for i, entry in opt.adam.state_dict()["state"].items()}
+    return out
+
+
+def tp_gan_step(dp, app, settings_kw, weights, batch, draws):
+    """One SR-GAN step of ``app`` on a grid (or one rank: ``dp=None``):
+    the metrics, the full models and Adam moments after the step and this
+    rank's local shapes."""
+    exp = _experiment(dp, app, settings_kw, weights)
+    step = make_gan_train_step(exp.settings,
+                               labeled_loss_fn=exp.labeled_loss_fn(),
+                               latent_shape=exp.latent_shape(), dp=dp)
+    share = _share(dp, len(batch[0]))
+    x, y, u = (torch.from_numpy(np.ascontiguousarray(a[share]))
+               for a in batch)
+    state, metrics = step(exp.state, model_layout(x), y, model_layout(u),
+                          **{k: torch.from_numpy(np.asarray(v))
+                             for k, v in draws.items()})
+    full = _full_models(state)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "models": full, "moments": _moments(state, full),
+            "shapes": _local_shapes(state)}
+
+
+def tp_dnn_step(dp, settings_kw, weights, batch):
+    """One DNN-only step of the coefficient app: the metrics and the full
+    DNN and its Adam moments after it."""
+    exp = _experiment(dp, "coefficient", dict(settings_kw, dnn_only=True),
+                      weights)
+    step = make_dnn_train_step(exp.settings, dp=dp)
+    share = _share(dp, len(batch[0]))
+    x, y = (torch.from_numpy(np.ascontiguousarray(a[share]))
+            for a in batch[:2])
+    state, metrics = step(exp.state, x, y)
+    full = _full_models(state)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "dnn": full["dnn"], "moments": _moments(state, full, ("dnn",))["dnn"]}
+
+
+class Block(torch.nn.Module):
+    """conv → GroupNorm + LeakyReLU → conv, gathered at the end: the unit
+    of the sharded layers' tests."""
+
+    def __init__(self, cin, width, cout, groups, impl, rng):
+        super().__init__()
+        f32 = torch.float32
+        self.conv1 = Conv(cin, width, 3, dtype=f32, rng=rng)
+        self.norm = group_norm(width, f32, impl, max_groups=groups)
+        self.conv2 = Conv(width, cout, 3, 2, dtype=f32, rng=rng)
+        self.cout = cout
+
+    def forward(self, x):
+        x = norm_act(self.conv1(x), self.norm, 0.2)
+        return gather_channels(self, self.conv2(x), self.cout)
+
+
+def _penalty_pass(block, x):
+    """The block's output, its penalty-style input gradient and penalty,
+    and the gradient of (loss + penalty) w.r.t. its parameters, full."""
+    x = x.clone().requires_grad_(True)
+    y = block(x)
+    weight = torch.linspace(0.5, 1.5, y.shape[1], device=y.device)
+    loss = (y.square() * weight[:, None, None]).mean()
+    (gx,) = torch.autograd.grad(loss, x, create_graph=True)
+    penalty = (gx.flatten(1).norm(dim=1) - 1.0).square().mean()
+    params = list(block.parameters())
+    grads = torch.autograd.grad(loss + penalty, params)
+    full = {}
+    for (name, p), g in zip(block.named_parameters(), grads):
+        shard = tp.shard_of(p)
+        full[name] = (g if shard is None
+                      else shard[1].gather(g, shard[0])).detach()
+    return {"y": y.detach(), "gx": gx.detach(), "penalty": penalty.detach(),
+            "grads": full}
+
+
+def tp_block(dp, cin, width, cout, groups, impl, seed, device="cpu"):
+    """The :class:`Block` unsharded and sharded over the model axis, on
+    the same input: their penalty passes (on the host), and the sharded
+    norm's groups."""
+    block = Block(cin, width, cout, groups, impl,
+                  torch.Generator().manual_seed(seed))
+    x = torch.randn(4, cin, 8, 8, generator=torch.Generator().manual_seed(
+        seed + 1)).to(device).contiguous(memory_format=torch.channels_last)
+    block = block.to(device, memory_format=torch.channels_last)
+    want = _penalty_pass(copy.deepcopy(block), x)
+    tp.shard_module(block, dp.model)
+    got = _penalty_pass(block, x)
+    host = lambda tree: {k: (host(v) if isinstance(v, dict) else v.cpu())
+                         for k, v in tree.items()}
+    return {"want": host(want), "got": host(got),
+            "local_groups": block.norm.num_groups,
+            "local_width": block.conv1.weight.shape[0]}
+
+
+def tp_trained_models(experiment):
+    """A grid rank's ``train()``: its step and the full models and Adam
+    moments after it."""
+    state = experiment.train()
+    return dict(_full_models(state), step=state.step)
