@@ -167,13 +167,29 @@ Phases, each of which fails the run if it fails:
              validation pass through ``train()``, a rank's launches (3
              sampler, 30/25 norm a step) and the shapes its norm kernels
              ran at asserted; per rank the ms/step, the peak allocated
-             memory and the host ms of the model-axis collectives a step.
+             memory and the host ms of the model-axis collectives a step;
+16. tools  — the port's tools (``srgan_tpu_torch/tools/``): (a) the four
+             golden traces' configurations recorded on the CPU and
+             compared on the card at ``golden_trace.TOLERANCES`` (same
+             init, batches and draws); (b) a sweep of 2 combos × 2 seeds
+             × 50 steps through the shipped step with ``hyper``, ms per
+             lane-step; (c) the window bench at the flagship widths
+             ("pallas") on a 2 GB memmap database with a window of 256
+             in 4 slices refreshed every 2 steps, 20 timed steps: its
+             refreshes, rotation and buffers checked as phase 12 checks
+             them, 3 sampler and 30/25 norm launches a step asserted;
+             (d) the command-line rehearsal (preprocessing and training
+             command lines as subprocesses) at 4 images of 3000×4000, a
+             window of 64 and 4 steps, its metrics finite; (e) the
+             UCF-QNRF rehearsal at 2 images of 6000×4000 and 12 865
+             heads with NaN, inf and out-of-frame points, every head's
+             mass kept (``mass_conserved``).
 
 Prints the kernel table as one JSON line (each kernel's launches counted
 on the path that runs it: the training kernels in the rescale run of
 phase 5, the density kernel in phase 7, the copy kernel in phase 9;
-phases 4, 10, 11, 12, 13, 14 and 15 count the launches of each run
-they drive and assert them),
+phases 4, 10, 11, 12, 13, 14, 15 and 16 count the launches of each
+run they drive and assert them),
 then the card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": ...}``.
 Exits nonzero, printing no result, without a CUDA card or outside a
@@ -3279,6 +3295,137 @@ def tp_main_path(dev, logs: str, card: str) -> dict:
     return out
 
 
+# Phase 16: the port's tools. The committed traces' configurations, the
+# sweep's grid, the window bench's database and window, and the two
+# rehearsals' sizes.
+TRACE_FILES = ("coefficient_h10_s0", "crowd_tiny_s0", "age_dcgan_s0",
+               "driving_stack2_s0")
+SWEEP_GRID = {"unlabeled_loss_multiplier": [0.1, 1.0],
+              "fake_loss_multiplier": [1.0],
+              "gradient_penalty_multiplier": [10.0],
+              "learning_rate": [1e-3]}
+SWEEP_SEEDS, SWEEP_STEPS = 2, 50
+WINDOW_BENCH = ["--total-gb", "2", "--window", "256", "--slices", "4",
+                "--steps", str(TIMED_STEPS), "--warmup", "2",
+                "--refresh-period", "2"]
+CLI_REHEARSAL = ["--images", "4", "--steps", "4", "--window", "64"]
+UCF_IMAGES = [(4000, 6000, None)] * 2
+UCF_HEADS = 12865
+
+
+def tools_main_path(dev, logs: str, card: str) -> dict:
+    """Phase 16: the port's tools on this card. (a) the four golden
+    traces recorded on the CPU and compared on the card at
+    ``golden_trace.TOLERANCES``; (b) a sweep of 2 combos × 2 seeds × 50
+    steps; (c) the window bench at the flagship widths on a 2 GB database
+    with a window of 256, its refreshes and windows checked as phase 12
+    checks them and its sampler and norm launches counted; (d) the
+    command-line rehearsal at 4 images of 3000×4000 and 4 steps; (e) the
+    UCF-QNRF rehearsal at 2 images of 6000×4000 and 12 865 heads with its
+    junk points, the mass check held."""
+    from srgan_tpu_torch.tools import (golden_trace, real_scale_cli_rehearsal,
+                                       sweep, ucf_qnrf_rehearsal,
+                                       window_bench)
+    out = {}
+    # (a) golden traces: the CPU's against the card's, same init and draws
+    worst = {}
+    for name in TRACE_FILES:
+        with open(os.path.join(REPO, "traces", f"{name}.json")) as f:
+            golden = json.load(f)
+        app = golden.get("app", "coefficient")
+        args = (golden["steps"], golden["seed"], golden["hidden_size"], app)
+        cpu = golden_trace.run_trace(*args, device="cpu")
+        gpu = golden_trace.run_trace(*args, device=dev)
+        rtol, atol = golden_trace.TOLERANCES[app]
+        mismatch = golden_trace.compare_traces(gpu, cpu, rtol, atol)
+        if mismatch:
+            raise AssertionError(f"golden trace {app} on the card against "
+                                 f"the CPU (rtol {rtol}, atol {atol}): "
+                                 f"{mismatch}")
+        worst[app] = max(abs(g[k] - c[k]) / max(abs(c[k]), 1e-30)
+                         for g, c in zip(gpu, cpu) for k in c)
+    log(f"tools (a): 4 golden traces on the card within their tolerances "
+        f"of the CPU's; largest relative difference {json.dumps(worst)}")
+    out["golden_worst_rel"] = worst
+
+    # (b) the sweep's lanes through the shipped step
+    lanes = 2 * SWEEP_SEEDS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = sweep.run_grid(8, SWEEP_STEPS, SWEEP_SEEDS, 5000, 32, 10, 10,
+                          SWEEP_GRID, device=dev)
+    seconds = time.perf_counter() - t0
+    maes = [v for r in rows for k in ("gan_mae_per_seed", "dnn_mae_per_seed")
+            for v in r[k]]
+    if len(rows) != 2 or not all(math.isfinite(v) and v > 0 for v in maes):
+        raise AssertionError(f"sweep rows: {rows}")
+    out["sweep_ms_per_lane_step"] = 1e3 * seconds / (lanes * SWEEP_STEPS)
+    log(f"tools (b): sweep of {lanes} lanes x {SWEEP_STEPS} steps in "
+        f"{seconds:.2f} s, {out['sweep_ms_per_lane_step']:.4f} ms per "
+        f"lane-step ({dev}: {card}); MAEs {maes}")
+
+    # (c) the window bench: refreshes, windows and launches
+    counters = _launch_counters()
+    for counter in counters.values():
+        counter.launches = 0
+    bench_args = window_bench.parse_args(WINDOW_BENCH + [
+        "--db-root", os.path.join(logs, "window_db")])
+    result, exp, settings = window_bench.run_bench(bench_args, dev)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    steps = bench_args.warmup + bench_args.steps
+    try:
+        _check_window(exp, settings, steps)
+    finally:
+        exp.close()
+    per_step = {"extract_patches": 3, "extract_rescaled_patches": 0,
+                "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+    for kernel, count in per_step.items():
+        if launches[kernel] != count * steps:
+            raise AssertionError(f"window bench: {kernel} launched "
+                                 f"{launches[kernel]} times in {steps} "
+                                 f"steps, not {count} a step")
+    period = bench_args.refresh_period
+    timed = len(range(period, steps, period)) - len(
+        range(period, bench_args.warmup, period))
+    if result["refreshes_in_timed_region"] != [timed, timed]:
+        raise AssertionError(f"window bench refreshes: {result}")
+    log(f"tools (c): window bench {json.dumps(result)}; launches "
+        f"{json.dumps(launches)} ({card})")
+    out["window_bench"] = result
+    del exp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the command-line rehearsal: preprocessing and training CLIs
+    cli_args = real_scale_cli_rehearsal.parse_args(CLI_REHEARSAL + [
+        "--work-dir", os.path.join(logs, "cli_rehearsal")])
+    report = real_scale_cli_rehearsal.run(cli_args)
+    metrics = report["validation"]
+    if set(metrics) != COUNT_METRICS or not all(
+            math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"command-line rehearsal: {report}")
+    log(f"tools (d): command-line rehearsal {json.dumps(report)} ({card})")
+    out["cli_rehearsal"] = report
+
+    # (e) the UCF-QNRF rehearsal at the dataset's largest images
+    summary = ucf_qnrf_rehearsal.rehearse(
+        os.path.join(logs, "ucf_rehearsal"), UCF_IMAGES, UCF_HEADS,
+        ["density"], 384, 512, 8.0, 0, device=dev)
+    record = summary["results"][0]
+    if (record["expected_counts"] != [UCF_HEADS] * len(UCF_IMAGES)
+            or not record["mass_conserved"]
+            or not record["density_finite"]):
+        raise AssertionError(f"UCF-QNRF rehearsal: {record}")
+    log(f"tools (e): UCF-QNRF rehearsal "
+        f"{json.dumps(dict(summary, results=None))} "
+        f"{json.dumps(record)}")
+    out["ucf_rehearsal"] = {k: v for k, v in record.items()
+                            if not isinstance(v, list)}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3413,6 +3560,11 @@ def main() -> int:
     # 15. tensor parallelism: a 1 × 2 grid over gloo on this card
     tensor = tp_main_path(dev, os.path.join(logs, "tensor"), smi)
     log("tensor parallel: " + json.dumps(tensor))
+
+    # 16. the tools: golden traces, the sweep, the window bench, the
+    # rehearsals
+    tools = tools_main_path(dev, os.path.join(logs, "tools"), smi)
+    log("tools: " + json.dumps(tools))
 
     for entry in entries[:-1]:
         entry["launches"] = launches[entry["name"]]

@@ -107,6 +107,15 @@ def _load() -> ctypes.CDLL:
         return lib
 
 
+def native_library_available() -> bool:
+    """Whether the library builds (or is built) and loads here."""
+    try:
+        _load()
+        return True
+    except (OSError, RuntimeError):
+        return False
+
+
 def _as_i32_ptr(array: np.ndarray):
     return array.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 

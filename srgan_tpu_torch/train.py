@@ -111,16 +111,22 @@ class Optimizer:
         self.dp = dp
         self.sharded = [tp.shard_of(p) is not None for p in params]
         self.clip_norm = settings.gradient_clip_norm
-        capturable = (settings.steps_per_dispatch > 1
-                      and params[0].device.type == "cuda")
+        self.capturable = (settings.steps_per_dispatch > 1
+                           and params[0].device.type == "cuda")
         kwargs = dict(lr=settings.learning_rate,
                       betas=(settings.adam_b1, settings.adam_b2), eps=1e-8,
-                      capturable=capturable)
+                      capturable=self.capturable)
         if weight_decay and settings.weight_decay > 0.0:
             self.adam = torch.optim.AdamW(
                 params, weight_decay=settings.weight_decay, **kwargs)
         else:
             self.adam = torch.optim.Adam(params, weight_decay=0.0, **kwargs)
+
+    def set_learning_rate(self, lr: float) -> None:
+        """The learning rate of the next steps. AdamW's decoupled decay
+        is scaled by it, as optax's ``adamw`` scales it."""
+        for group in self.adam.param_groups:
+            group["lr"] = lr
 
     def step(self, grads: Tuple[Tensor, ...]) -> None:
         if self.dp is not None:
@@ -187,6 +193,10 @@ def default_labeled_loss_fn(settings: Settings):
         predictions, labels, order=order)
 
 
+HYPER_KEYS = ("unlabeled_loss_multiplier", "fake_loss_multiplier",
+              "gradient_penalty_multiplier", "learning_rate")
+
+
 def _slice_predictions(predictions, end: int):
     if isinstance(predictions, (tuple, list)):
         return type(predictions)(p[:end] for p in predictions)
@@ -198,6 +208,7 @@ def make_gan_train_step(
     labeled_loss_fn: Optional[Callable] = None,
     latent_shape: Optional[Tuple[int, ...]] = None,
     dp: Optional[DataParallel] = None,
+    hyper: Optional[Dict[str, float]] = None,
 ) -> Callable[..., Tuple[SRGANTrainState, Dict[str, Tensor]]]:
     """Build the fused (D + G [+ DNN]) step.
 
@@ -211,13 +222,42 @@ def make_gan_train_step(
     Under ``dp`` the batch tensors are this rank's share, the draws
     (drawn or given) are the global batch's, and the metrics are the
     global losses, the same on every rank.
+
+    ``hyper`` overrides the settings' ``unlabeled_loss_multiplier``,
+    ``fake_loss_multiplier``, ``gradient_penalty_multiplier`` and
+    ``learning_rate``: how ``tools/sweep.py`` trains each lane of its grid
+    through this step. The optimizers are built by
+    :func:`init_train_state`, so an overridden learning rate is set on
+    the state's three optimizers before each of their updates, and stays
+    set after the step. A CUDA graph of a chunk (``steps_per_dispatch`` >
+    1 on the card, ``utils/cuda_graph.py``) would replay the learning rate
+    in force when it was captured, so the step refuses an overridden one
+    with a capturable Adam.
     """
     labeled_loss_fn = labeled_loss_fn or default_labeled_loss_fn(settings)
     z_dim = settings.latent_dimension
     period = settings.generator_training_step_period
-    unl_mult = settings.unlabeled_loss_multiplier
-    fake_mult = settings.fake_loss_multiplier
-    gp_mult = settings.gradient_penalty_multiplier
+    h = {k: getattr(settings, k) for k in HYPER_KEYS}
+    if hyper:
+        unknown = set(hyper) - set(h)
+        if unknown:
+            raise ValueError(f"unknown hyper overrides {sorted(unknown)}; "
+                             f"choose from {sorted(h)}")
+        h.update(hyper)
+    unl_mult = h["unlabeled_loss_multiplier"]
+    fake_mult = h["fake_loss_multiplier"]
+    gp_mult = h["gradient_penalty_multiplier"]
+    lr = hyper.get("learning_rate") if hyper else None
+
+    def update(opt: Optimizer, grads: Tuple[Tensor, ...]) -> None:
+        if lr is not None:
+            if opt.capturable:
+                raise ValueError(
+                    "hyper['learning_rate'] cannot be used with "
+                    "steps_per_dispatch > 1 on a CUDA card: a chunk's CUDA "
+                    "graph replays the learning rate it captured")
+            opt.set_learning_rate(lr)
+        opt.step(grads)
 
     def sample_z(rng: torch.Generator, batch: int) -> Tensor:
         shape = (batch,) + tuple(latent_shape or (z_dim,))
@@ -309,13 +349,13 @@ def make_gan_train_step(
                                 z_d, alpha)
         d_grads = torch.autograd.grad(total, d_params)
         del total
-        state.d_opt.step(d_grads)
+        update(state.d_opt, d_grads)
 
         # ---- G update (every `generator_training_step_period` steps) -----
         if period == 1 or state.step % period == 0:
             loss = g_loss(state, unlabeled_x, z_g)
             g_grads = torch.autograd.grad(loss, state.g_opt.params)
-            state.g_opt.step(g_grads)
+            update(state.g_opt, g_grads)
             metrics["g_loss"] = loss.detach()
         else:
             metrics["g_loss"] = torch.zeros((), device=unlabeled_x.device)
@@ -325,7 +365,7 @@ def make_gan_train_step(
             pred, _ = state.dnn(labeled_x)
             loss = losses.global_mean(labeled_loss_fn(pred, labels), dp)
             dnn_grads = torch.autograd.grad(loss, state.dnn_opt.params)
-            state.dnn_opt.step(dnn_grads)
+            update(state.dnn_opt, dnn_grads)
             metrics["dnn_loss"] = loss.detach()
 
         state.step += 1

@@ -307,10 +307,17 @@ def test_the_new_modules_import_no_jax():
             "srgan_tpu_torch.apps.driving, srgan_tpu_torch.data.window, "
             "srgan_tpu_torch.io.native, srgan_tpu_torch.models.crowd, "
             "srgan_tpu_torch.apps.crowd, srgan_tpu_torch.utils.cuda_graph, "
-            "srgan_tpu_torch.parallel.tp; "
+            "srgan_tpu_torch.parallel.tp, srgan_tpu_torch.io, "
+            "srgan_tpu_torch.tools.sweep, srgan_tpu_torch.tools.golden_trace, "
+            "srgan_tpu_torch.tools.window_bench, "
+            "srgan_tpu_torch.tools.ucf_qnrf_rehearsal, "
+            "srgan_tpu_torch.tools.imdb_wiki_rehearsal, "
+            "srgan_tpu_torch.tools.real_scale_cli_rehearsal, "
+            "srgan_tpu_torch.tools.crowd_win, "
+            "srgan_tpu_torch.tools.scale_fidelity_ab; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'PIL', 'scipy', "
-            "'srgan_tpu')); print(bad); sys.exit(1 if bad else 0)")
+            "'srgan_tpu', 'tools')); print(bad); sys.exit(1 if bad else 0)")
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                             capture_output=True, text=True, timeout=120)
     assert result.returncode == 0, result.stdout + result.stderr
