@@ -9,7 +9,8 @@ Phases, each of which fails the run if it fails:
              this checkout (``nvcc`` for sm_90a, one process per source,
              all started together; ``patches.cu`` holds both patch
              samplers) and, beside them, the host tier's library from
-             ``native/srgan_io.cc`` (``g++``), timed;
+             the port's own ``srgan_tpu_torch/csrc/srgan_io.cc``
+             (``g++``), timed;
 2. kernels — the patch-sampler kernel against its plain PyTorch version
              at the flagship shapes, for uint8 images and float32 and
              bfloat16 density labels, one and two channels (the kNN/iKNN
@@ -63,7 +64,8 @@ Phases, each of which fails the run if it fails:
              (``NORM_LAUNCHES_PER_STEP``, ``LAUNCHES_PER_VALIDATION``);
 6. time    — 20 more steps of each between ``torch.cuda.synchronize()``
              calls: ms/step, images/s and the peak of allocated device
-             memory; and one validation pass;
+             memory; 3 more under ``torch.profiler``: the card's busy
+             share; and one validation pass;
 7. preprocess — a raw UCF-QNRF-layout database synthesized from seed 0
              (16/16/16/2 JPEGs of 768×1024, up to 2000 heads each)
              through ``python -m srgan_tpu_torch.data.crowd``'s ``main``
@@ -154,7 +156,7 @@ Phases, each of which fails the run if it fails:
              gloo on this card (``devices`` naming it twice), one launch:
              (c) a conv → norm of 3 groups (straddling the ranks) → conv
              layer against its unsharded self, forward and double
-             backward, under "xla" and "pallas"; (a) ``TP_TINY`` in
+             backward, under "xla", "fast" and "pallas"; (a) ``TP_TINY`` in
              float32 under "xla", "pallas" and "xla" with the gradient
              clipped (``TP_CLIP``, which every model's gradient
              exceeds), 4 steps, the ranks' full models bit-equal and held
@@ -183,12 +185,23 @@ Phases, each of which fails the run if it fails:
              window of 64 and 4 steps, its metrics finite; (e) the
              UCF-QNRF rehearsal at 2 images of 6000×4000 and 12 865
              heads with NaN, inf and out-of-frame points, every head's
-             mass kept (``mass_conserved``).
+             mass kept (``mass_conserved``);
+17. fast   — ``norm_impl="fast"`` (``FastGroupNorm``, composite torch
+             ops with the statistics in the compute dtype; no kernel of
+             its own): (a) phase 4's tiny float32 evaluation and step on
+             the card against the CPU, and the module in bfloat16 at two
+             shapes against the CPU (``check_fast_norm_module``); (b) the
+             flagship through ``CrowdExperiment.train()`` as in phases 5
+             and 6 (3 sampler launches a step and no norm kernel
+             asserted), its ms/step, busy share and peak printed beside
+             phase 6's "xla" and "pallas"; (c) the age SR-GAN at full
+             width (``APP_FULL``) through ``train()`` as in phase 10; (d)
+             phase 14 (a)'s chunk replays bit-equal to eager steps.
 
 Prints the kernel table as one JSON line (each kernel's launches counted
 on the path that runs it: the training kernels in the rescale run of
 phase 5, the density kernel in phase 7, the copy kernel in phase 9;
-phases 4, 10, 11, 12, 13, 14, 15 and 16 count the launches of each
+phases 4, 10, 11, 12, 13, 14, 15, 16 and 17 count the launches of each
 run they drive and assert them),
 then the card's name and power limit as nvidia-smi gives them, and last
 ``{"ok": true, "device": ...}``.
@@ -217,6 +230,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 8
 TIMED_STEPS = 20
 PROFILED_STEPS = 5
+FLAGSHIP_PROFILED = 3
 VALIDATION_PERIOD = 4
 RESCALE = (0.75, 1.0, 1.25)
 # The samplers' check reads from bench.py's flagship split of 1000 images
@@ -1292,16 +1306,22 @@ def check_crowd_trial(trial_directory: str, steps: int) -> None:
                if k.startswith("validation/")} for sub in ("GAN", "DNN")}))
 
 
-def train_main_path(settings, dev, card: str) -> dict:
-    """Phases 5 and 6: ``CrowdExperiment(settings).train()`` with
-    validation every ``VALIDATION_PERIOD`` steps, checked, then further
-    steps of the same experiment timed, and one validation pass timed.
-    Returns the kernels' launches during ``train()``, by kernel table
-    name, and the timed ms/step."""
+def train_main_path(settings, dev, card: str) -> tuple:
+    """Phases 5 and 6 (and 17 (b)): ``CrowdExperiment(settings).train()``
+    with validation every ``VALIDATION_PERIOD`` steps, checked, then
+    further steps of the same experiment timed, ``FLAGSHIP_PROFILED``
+    more under ``torch.profiler`` (the card's busy share), and one
+    validation pass timed. Returns the kernels' launches during
+    ``train()``, by kernel table name, and {ms_per_step, peak_gib,
+    busy_share}."""
     from srgan_tpu_torch import CrowdExperiment
     from srgan_tpu_torch.ops import fused_norm as fn
     from srgan_tpu_torch.ops.patches import (extract_patches,
                                              extract_rescaled_patches)
+    # An earlier run's experiment, held by reference cycles, must not
+    # count in this one's peak.
+    gc.collect()
+    torch.cuda.empty_cache()
     exp = CrowdExperiment(settings, device=dev)
     steps = settings.steps_to_run
     impl = settings.norm_impl
@@ -1361,18 +1381,31 @@ def train_main_path(settings, dev, card: str) -> dict:
     elapsed = time.perf_counter() - t0
     if not all(math.isfinite(float(v)) for v in metrics.values()):
         raise AssertionError(f"timed steps: losses {metrics}")
-    peak = f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB"
+    out = {"ms_per_step": 1e3 * elapsed / TIMED_STEPS,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(FLAGSHIP_PROFILED):
+            exp._train_step(exp.state, *next(stream), exp._rng)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, _ = _busy(prof)
+    out["busy_share"] = busy / wall
     t0 = time.perf_counter()
     exp.validation_summaries(epoch=0, step=10 ** 6)
     torch.cuda.synchronize()
     t_val = time.perf_counter() - t0
-    log(f"time ({what}): {1e3 * elapsed / TIMED_STEPS:.2f} ms/step, "
+    log(f"time ({what}): {out['ms_per_step']:.2f} ms/step, "
         f"{settings.batch_size * TIMED_STEPS / elapsed:.2f} images/s "
         f"(batch {settings.batch_size}, {TIMED_STEPS} steps, {dev}: "
-        f"{card}), peak allocated {peak}; one validation pass "
-        f"({settings.validation_dataset_size} images, D and DNN, "
-        f"triptychs and G samples written) {1e3 * t_val:.1f} ms")
-    return launches, 1e3 * elapsed / TIMED_STEPS
+        f"{card}), peak allocated {out['peak_gib']:.2f} GiB; the card busy "
+        f"{100 * out['busy_share']:.1f}% of {FLAGSHIP_PROFILED} steps "
+        f"under torch.profiler ({busy:.1f} of {wall:.1f} ms); one "
+        f"validation pass ({settings.validation_dataset_size} images, D "
+        f"and DNN, triptychs and G samples written) {1e3 * t_val:.1f} ms")
+    return launches, out
 
 
 def app_train_main_path(app, settings, dev, card: str) -> dict:
@@ -3076,7 +3109,7 @@ def tp_gloo_action(experiment, tiny_runs, flagship_settings,
         return action(exp)
 
     out = {"straddle": {impl: tp_straddle(dp, impl)
-                        for impl in ("xla", "pallas")}}
+                        for impl in ("xla", "fast", "pallas")}}
     out["tiny"] = {"xla": tp_tiny_action(experiment)}
     for name, settings, trial in tiny_runs:
         out["tiny"][name] = run(settings, trial, tp_tiny_action)
@@ -3426,6 +3459,97 @@ def tools_main_path(dev, logs: str, card: str) -> dict:
     return out
 
 
+# Phase 17: norm_impl="fast" (FastGroupNorm: composite torch ops in the
+# compute dtype, no kernel of its own). The module's bfloat16 check: the
+# JAX test's probe shape and the flagship D's first norm at batch 8, 32
+# groups; the forward within FAST_ULPS ulps of the largest output (the
+# card and the CPU sum the float32 statistics in other orders, and a
+# group's mean or rsqrt may round to the neighbouring bfloat16 value),
+# the gradients within FAST_GRAD_TOL of their largest.
+FAST_SHAPES = [(4, 64, 14, 14), (8, 64, 112, 112)]
+FAST_ULPS = 2
+FAST_GRAD_TOL = 1e-2
+
+
+def check_fast_norm_module(dev) -> dict:
+    """Phase 17 (a): ``FastGroupNorm`` in bfloat16 on the card against
+    the CPU on the same input, scale and bias: the output and the first
+    gradients of sum(w · y) w.r.t. x, scale and bias."""
+    from srgan_tpu_torch.models.dcgan import FastGroupNorm
+    out = {}
+    for shape in FAST_SHAPES:
+        gen = torch.Generator().manual_seed(17)
+        x = (torch.randn(shape, generator=gen) * 3 + 1).contiguous(
+            memory_format=torch.channels_last)
+        w = torch.randn(shape, generator=gen)
+        params = {"scale": 1 + 0.2 * torch.randn(shape[1], generator=gen),
+                  "bias": 0.3 * torch.randn(shape[1], generator=gen)}
+        results = []
+        for device in ("cpu", dev):
+            norm = FastGroupNorm(shape[1], 32, dtype=torch.bfloat16).to(
+                device)
+            norm.load_state_dict(params)
+            xd = x.to(device).requires_grad_(True)
+            y = norm(xd)
+            grads = torch.autograd.grad((y.float() * w.to(device)).sum(),
+                                        [xd, norm.scale, norm.bias])
+            results.append([t.detach().float().cpu() for t in (y, *grads)])
+        (cpu_y, *cpu_g), (gpu_y, *gpu_g) = results
+        top = float(cpu_y.abs().max())
+        ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+        err = float((gpu_y - cpu_y).abs().max())
+        errors = {"y_ulps": err / ulp,
+                  "y_differ": int((gpu_y != cpu_y).sum())}
+        if not err <= FAST_ULPS * ulp:
+            raise AssertionError(f"fast (a) {shape}: the card's output is "
+                                 f"{err} from the CPU's, over {FAST_ULPS} "
+                                 f"ulps of the largest ({ulp})")
+        for name, a, b in zip(("x", "scale", "bias"), cpu_g, gpu_g):
+            rel = float((b - a).abs().max()) / float(a.abs().max())
+            errors[f"grad_{name}"] = rel
+            if not rel <= FAST_GRAD_TOL:
+                raise AssertionError(f"fast (a) {shape}: grad {name} on the "
+                                     f"card is {rel} of its largest from "
+                                     f"the CPU's")
+        out[str(list(shape))] = errors
+    log("fast (a), FastGroupNorm in bfloat16 on the card against the CPU "
+        f"(forward within {FAST_ULPS} ulps of the largest output, "
+        f"gradients within {FAST_GRAD_TOL:g} of their largest): "
+        + json.dumps(out))
+    return out
+
+
+def fast_main_path(dev, logs: str, card: str, timed: dict) -> dict:
+    """Phase 17: ``norm_impl="fast"``. (a) a tiny float32 crowd evaluation
+    and step on the card against the CPU, and the module in bfloat16;
+    (b) the flagship through ``CrowdExperiment.train()`` with its
+    launches asserted (3 sampler launches a step, no norm kernel), timed
+    beside phase 6's "xla" and "pallas" (``timed``); (c) the age SR-GAN
+    at full width through ``train()``; (d) chunk replays bit-equal to
+    eager steps."""
+    from srgan_tpu_torch import Settings
+    out = {}
+    check_small_step(dev, "fast")
+    out["module"] = check_fast_norm_module(dev)
+    settings = Settings(
+        logs_directory=logs, steps_to_run=STEPS, summary_step_period=1,
+        validation_step_period=VALIDATION_PERIOD, norm_impl="fast",
+        **dict(FLAGSHIP, trial_name="chip_smoke_fast"))
+    out["launches"], flagship = train_main_path(settings, dev, card)
+    out["flagship"] = dict(timed, fast=flagship)
+    log("fast (b), the flagship (batch 120, 224-px patches, base width 64, "
+        "bfloat16), ms/step, busy share, peak allocated: " + "; ".join(
+            f"{impl}: {r['ms_per_step']:.2f} ms, "
+            f"{100 * r['busy_share']:.1f}%, {r['peak_gib']:.2f} GiB"
+            for impl, r in out["flagship"].items())
+        + f" ({card})")
+    out["age"] = app_train_main_path("age", Settings(**dict(
+        APP_FULL, logs_directory=os.path.join(logs, "apps"),
+        trial_name="chip_smoke_fast_age", norm_impl="fast")), dev, card)
+    out["dispatch"] = dispatch_correctness(dev, "fast")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3456,15 +3580,15 @@ def main() -> int:
                 f"{time.perf_counter() - t0:.2f} s")
 
     def build_native():
-        """The host tier's library, built by this run from the checkout's
-        ``native/srgan_io.cc``."""
+        """The host tier's library, built by this run from the port's
+        ``csrc/srgan_io.cc``."""
         from srgan_tpu_torch.io import native
         path = native.library_path()
         if os.path.exists(path):
             os.remove(path)
         t0 = time.perf_counter()
         native.build_library()
-        return (f"build: native/srgan_io.cc -> "
+        return (f"build: {os.path.relpath(native.SOURCE_PATH, REPO)} -> "
                 f"{os.path.relpath(path, REPO)} (g++) in "
                 f"{time.perf_counter() - t0:.2f} s")
 
@@ -3498,14 +3622,13 @@ def main() -> int:
 
     # 5. the training paths through their entry point; 6. timed steps
     logs = os.path.join(REPO, "logs", "chip_smoke")
-    step_ms = {}
+    timed = {}
     for impl, factors in (("xla", ()), ("pallas", ()), ("pallas", RESCALE)):
         settings = Settings(
             logs_directory=logs, steps_to_run=STEPS, summary_step_period=1,
             validation_step_period=VALIDATION_PERIOD, norm_impl=impl,
             crowd_rescale_factors=factors, **FLAGSHIP)
-        launches, step_ms[impl, factors] = train_main_path(settings, dev,
-                                                           smi)
+        launches, timed[impl, factors] = train_main_path(settings, dev, smi)
     # The training kernels' launches are those of the last run, the
     # rescale sampler's, which launches all four.
 
@@ -3550,7 +3673,7 @@ def main() -> int:
 
     # 13. data parallelism: a world of 1 over NCCL, a world of 2 over gloo
     parallel = dp_main_path(dev, os.path.join(logs, "parallel"), smi,
-                            step_ms["pallas", ()])
+                            timed["pallas", ()]["ms_per_step"])
     log("data parallel: " + json.dumps(parallel))
 
     # 14. steps_per_dispatch: K steps a CUDA graph replay
@@ -3565,6 +3688,13 @@ def main() -> int:
     # rehearsals
     tools = tools_main_path(dev, os.path.join(logs, "tools"), smi)
     log("tools: " + json.dumps(tools))
+
+    # 17. norm_impl="fast": the tiny step and the module, the flagship
+    # beside phase 6's, the age app, chunk replays
+    fast = fast_main_path(dev, os.path.join(logs, "fast"), smi,
+                          {impl: timed[impl, ()] for impl in ("xla",
+                                                              "pallas")})
+    log("fast: " + json.dumps(fast))
 
     for entry in entries[:-1]:
         entry["launches"] = launches[entry["name"]]

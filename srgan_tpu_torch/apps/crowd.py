@@ -482,7 +482,7 @@ class CrowdExperiment(Experiment):
 
     def _prepare_host_pipeline(self) -> None:
         """Export the training splits as .npy and open the native readers
-        (``native/srgan_io.cc``); with one rank, start the prefetchers
+        (``csrc/srgan_io.cc``); with one rank, start the prefetchers
         (several ranks gather their shares of the global draws instead,
         :meth:`_host_epoch_iterators`, and so do the model ranks of a
         grid: a prefetcher's threads deliver its batches in no fixed

@@ -56,7 +56,7 @@ def _structure(module: torch.nn.Module) -> Dict[str, str]:
     """Each state-dict entry with the class of the module that owns it,
     its shape and its dtype: the port's counterpart of the parameter
     paths that tell a flax model with ``GroupNorm_i`` from one with
-    ``FusedGroupNormAct_i``."""
+    ``FastGroupNorm_i`` or ``FusedGroupNormAct_i``."""
     out = {}
     for key, tensor in module.state_dict(keep_vars=True).items():
         owner = module.get_submodule(key.rpartition(".")[0])

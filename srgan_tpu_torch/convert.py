@@ -12,9 +12,10 @@ Layout rules (``srgan_tpu_torch.models.dcgan``):
   flipped in H and W (flax does not flip the kernel of a transposed conv;
   ``conv_transpose2d`` does).
 * ``Dense_i`` kernel [in, out] → weight [out, in].
-* ``GroupNorm_i`` (``norm_impl="xla"``) or ``FusedGroupNormAct_i``
-  (``norm_impl="pallas"``) scale / bias → ``norms.i.scale`` /
-  ``norms.i.bias``; both norm modules of the port keep these keys.
+* ``GroupNorm_i`` (``norm_impl="xla"``), ``FastGroupNorm_i``
+  (``"fast"``) or ``FusedGroupNormAct_i`` (``"pallas"``) scale / bias →
+  ``norms.i.scale`` / ``norms.i.bias``; the three norm modules of the
+  port keep these keys.
 
 The port's ``ConvRegressor`` flattens its last map in NHWC order, as the
 flax model does, so its dense kernels convert by the plain transpose.
@@ -51,7 +52,7 @@ def dense_weight(kernel) -> torch.Tensor:
     return _tensor(np.asarray(kernel).T)
 
 
-_NORM_NAMES = ("GroupNorm", "FusedGroupNormAct")
+_NORM_NAMES = ("GroupNorm", "FastGroupNorm", "FusedGroupNormAct")
 
 
 def _has_norms(tree: Mapping) -> bool:
@@ -62,7 +63,8 @@ def _norm_leaf(tree: Mapping, i: int) -> Mapping:
     for name in _NORM_NAMES:
         if f"{name}_{i}" in tree:
             return tree[f"{name}_{i}"]
-    raise KeyError(f"no GroupNorm_{i} or FusedGroupNormAct_{i} in the tree")
+    raise KeyError(f"no GroupNorm_{i}, FastGroupNorm_{i} or "
+                   f"FusedGroupNormAct_{i} in the tree")
 
 
 def _norms(tree: Mapping, count: int) -> StateDict:

@@ -70,17 +70,13 @@ from srgan_tpu_torch.utils.summary import SummaryWriter, make_trial_directory
 
 
 def check_supported(settings: Settings) -> None:
-    """Raise for a setting the port does not run: ``ValueError`` where
-    JAX refuses it too, ``NotImplementedError`` for ``norm_impl="fast"``,
-    which the port leaves out."""
+    """Raise JAX's ``ValueError`` for a setting that JAX refuses before
+    it builds the models (an unknown ``norm_impl`` raises as the models
+    are built, as in JAX)."""
     model = settings.model_parallel_devices
     if model < 1:
         raise ValueError(
             f"model_parallel_devices must be >= 1, got {model}")
-    if settings.norm_impl == "fast":
-        raise NotImplementedError(
-            "norm_impl='fast' (FastGroupNorm) is not ported to PyTorch; the "
-            "port runs norm_impl='xla' or 'pallas'")
 
 
 def check_batch_divides(batch_size: int, ranks: int) -> None:

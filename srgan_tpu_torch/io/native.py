@@ -1,15 +1,15 @@
-"""ctypes bindings for the native host-IO runtime (``native/srgan_io.cc``).
+"""ctypes bindings for the native host-IO runtime (``csrc/srgan_io.cc``).
 
 The port's copy of ``srgan_tpu.io.native`` (which cannot be imported
 without loading JAX): memory-mapped ``.npy`` datasets and a threaded
 crop-gather prefetcher with a bounded ring queue, the host-side input of
 the crowd app's host tier (``crowd_host_pipeline``).
 
-The shared library builds at first use with ``g++`` from the repository's
-``native/srgan_io.cc`` into ``srgan_tpu_torch/build/``. Its file name
-carries a hash of the source and the flags, and it is compiled under a
-private name and renamed into place, so processes that build at once
-never load a half-written library.
+The shared library builds at first use with ``g++`` from the package's
+own ``srgan_tpu_torch/csrc/srgan_io.cc`` into ``srgan_tpu_torch/build/``.
+Its file name carries a hash of the source and the flags, and it is
+compiled under a private name and renamed into place, so processes that
+build at once never load a half-written library.
 """
 
 from __future__ import annotations
@@ -24,10 +24,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE_PATH = os.path.join(_REPO, "native", "srgan_io.cc")
-BUILD_DIR = os.path.join(_REPO, "srgan_tpu_torch", "build")
+_PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE_PATH = os.path.join(_PACKAGE_DIR, "csrc", "srgan_io.cc")
+BUILD_DIR = os.path.join(_PACKAGE_DIR, "build")
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-pthread",
              "-shared")
 
@@ -45,7 +44,7 @@ def library_path() -> str:
 
 
 def build_library() -> str:
-    """Compile ``native/srgan_io.cc`` unless its library exists; returns
+    """Compile ``csrc/srgan_io.cc`` unless its library exists; returns
     the library's path. Raises with the compiler's output on failure."""
     path = library_path()
     if os.path.exists(path):

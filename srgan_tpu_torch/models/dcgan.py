@@ -1,9 +1,9 @@
 """Layers with flax semantics, GroupNorm + activation, the DCGAN
 generator and the convolutional regressor.
 
-The port of ``srgan_tpu.models.dcgan`` (``norm_act`` with ``impl="xla"``
-or ``"pallas"``, ``DCGANGenerator`` and ``ConvRegressor``). Tensors are
-NCHW, and the models
+The port of ``srgan_tpu.models.dcgan`` (``FastGroupNorm``, ``norm_act``
+with ``impl="xla"``, ``"fast"`` or ``"pallas"``, ``DCGANGenerator`` and
+``ConvRegressor``). Tensors are NCHW, and the models
 keep them in ``channels_last`` memory, which is the JAX package's NHWC
 layout in memory.
 
@@ -17,6 +17,9 @@ What differs from torch's own layers, and is matched here:
   H and W, which is how :class:`ConvTranspose` stores it.
 * GroupNorm uses ε = 1e-6 and flax's single-pass variance E[x²] − E[x]²,
   with the statistics in float32 whatever the compute dtype.
+  :class:`FastGroupNorm` (``"fast"``) keeps JAX's: ε = 1e-5 rounded to
+  the compute dtype, a two-pass variance, the statistics in the compute
+  dtype.
 * The bf16 policy mirrors flax ``dtype=``: parameters stay float32; each
   conv and dense layer casts its input and its parameters to the compute
   dtype; GroupNorm computes in float32 and returns the compute dtype. The
@@ -168,17 +171,70 @@ def group_norm_nchw(x: torch.Tensor, scale: torch.Tensor,
     return y.reshape(b, c, h, w).to(dtype)
 
 
+class FastGroupNorm(nn.Module):
+    """JAX's ``FastGroupNorm`` over NCHW: the statistics in the compute
+    dtype, not float32, and the two-pass variance mean((x − mean)²).
+
+    The group count is JAX's: ``min(num_groups, channels)``, lowered until
+    it divides the channels, resolved here once (tensor parallelism halves
+    ``num_groups``). ε is 1e-5 rounded to the compute dtype, as JAX adds
+    ``jnp.asarray(epsilon, dtype)``, and kept as a Python float: forward
+    makes no tensor and reads none back, so it captures in a CUDA graph.
+    """
+
+    def __init__(self, channels: int, num_groups: int = 32, *,
+                 dtype: torch.dtype, epsilon: float = 1e-5):
+        super().__init__()
+        groups = min(num_groups, channels)
+        while channels % groups:
+            groups -= 1
+        self.num_groups = groups
+        self.dtype = dtype
+        self.epsilon = torch.tensor(epsilon, dtype=dtype).item()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fast_group_norm_nchw(x, self.scale, self.bias,
+                                    self.num_groups, self.epsilon,
+                                    self.dtype)
+
+
+def fast_group_norm_nchw(x: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor, groups: int, epsilon: float,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """:class:`FastGroupNorm`'s computation with the given parameters.
+
+    Each elementwise step rounds to ``dtype``, and each mean sums in
+    float32 and rounds once, as ``jnp.mean`` of a bfloat16 array does.
+    The squares of the variance are float32: XLA leaves out the round
+    trip through ``dtype`` between ``jnp.square`` and ``jnp.mean``'s
+    float32 sum, and with them the port's output equals JAX's bit for bit
+    (``tests/test_torch_port_fast_norm.py``)."""
+    b, c, h, w = x.shape
+    xg = x.to(dtype).reshape(b, groups, c // groups, h, w)
+    axes = (2, 3, 4)
+    mean = xg.mean(dim=axes, keepdim=True, dtype=torch.float32).to(dtype)
+    centered = xg - mean
+    var = centered.float().square().mean(dim=axes, keepdim=True).to(dtype)
+    y = (centered * torch.rsqrt(var + epsilon)).reshape(b, c, h, w)
+    return (y * scale.to(dtype).view(1, c, 1, 1)
+            + bias.to(dtype).view(1, c, 1, 1))
+
+
 def group_norm(width: int, dtype: torch.dtype, impl: str = "xla",
                max_groups: int = 32) -> nn.Module:
     """The model-wide norm layer of ``Settings.norm_impl``, with
     ``min(max_groups, width)`` groups: the composite :class:`GroupNorm`
-    for ``"xla"``, the fused kernels' :class:`FusedGroupNormAct` for
-    ``"pallas"``."""
+    for ``"xla"``, :class:`FastGroupNorm` for ``"fast"``, the fused
+    kernels' :class:`FusedGroupNormAct` for ``"pallas"``."""
     if impl == "pallas":
         return FusedGroupNormAct(width, min(max_groups, width))
+    if impl == "fast":
+        return FastGroupNorm(width, min(max_groups, width), dtype=dtype)
     if impl != "xla":
-        raise ValueError(f"unknown norm_impl {impl!r}; the port runs "
-                         f"'xla' or 'pallas'")
+        raise ValueError(f"unknown norm_impl {impl!r}; "
+                         f"choose from ['xla', 'fast', 'pallas']")
     return GroupNorm(width, min(max_groups, width), dtype=dtype)
 
 
@@ -207,7 +263,8 @@ def run_norm_act(x: torch.Tensor, norm: nn.Module,
     """:func:`norm_act` of ``norm`` as it stands. A
     :class:`FusedGroupNormAct` applies the activation in its kernel,
     before the cast to the compute dtype; the composite :class:`GroupNorm`
-    casts first, and the activation follows."""
+    and :class:`FastGroupNorm` return the compute dtype, and the
+    activation follows."""
     if isinstance(norm, FusedGroupNormAct):
         return norm(x, negative_slope)
     return activation(norm(x), negative_slope)

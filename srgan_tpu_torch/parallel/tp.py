@@ -72,7 +72,8 @@ import torch.distributed as dist
 from torch import nn
 
 from srgan_tpu_torch.models.dcgan import (Conv, ConvTranspose, Dense,
-                                          GroupNorm, activation,
+                                          FastGroupNorm, GroupNorm,
+                                          activation, fast_group_norm_nchw,
                                           group_norm_nchw, run_norm_act)
 from srgan_tpu_torch.ops.fused_norm import FusedGroupNormAct, group_norm_act
 from srgan_tpu_torch.parallel.mesh import (COLLECTIVE_TIMEOUT_S,
@@ -331,9 +332,10 @@ def _shard_norm(norm: nn.Module, axis: ModelAxis) -> None:
             return group_norm_act(x, scale, bias, groups=groups,
                                   negative_slope=negative_slope,
                                   eps=norm.epsilon)
-        return activation(group_norm_nchw(x, scale, bias, groups,
-                                          norm.epsilon, norm.dtype),
-                          negative_slope)
+        compute = (fast_group_norm_nchw if isinstance(norm, FastGroupNorm)
+                   else group_norm_nchw)
+        return activation(compute(x, scale, bias, groups, norm.epsilon,
+                                  norm.dtype), negative_slope)
 
     norm.model_shard_hook = straddling
 
@@ -347,7 +349,8 @@ def shard_module(module: nn.Module, axis: ModelAxis) -> nn.Module:
     for sub in list(module.modules()):
         if isinstance(sub, (Conv, ConvTranspose, Dense)):
             _shard_layer(sub, axis)
-        elif isinstance(sub, (GroupNorm, FusedGroupNormAct)):
+        elif isinstance(sub, (GroupNorm, FastGroupNorm,
+                              FusedGroupNormAct)):
             _shard_norm(sub, axis)
         sub.model_axis = axis
     return module

@@ -3,9 +3,7 @@
 The same dataclass as ``srgan_tpu.settings.Settings``: every field keeps
 its name and default, so one configuration drives either package. The
 comments on each field live with the JAX package; the ones here say what
-the PyTorch port does with it. The one value the port does not run,
-``norm_impl="fast"``, raises ``NotImplementedError``
-(``srgan_tpu_torch.experiment.check_supported``).
+the PyTorch port does with it. The port runs every value that JAX runs.
 """
 
 from __future__ import annotations
@@ -75,8 +73,9 @@ class Settings:
     # "float32" or "bfloat16": params stay float32, convs and dense layers
     # compute in this dtype, GroupNorm statistics stay float32.
     compute_dtype: str = "float32"
-    # "xla" (a composite GroupNorm) or "pallas" (the fused CUDA kernels of
-    # ops/fused_norm.py); "fast" is not ported.
+    # "xla" (a composite GroupNorm, float32 statistics), "fast"
+    # (FastGroupNorm: compute-dtype statistics, two-pass variance) or
+    # "pallas" (the fused CUDA kernels of ops/fused_norm.py).
     norm_impl: str = "xla"
 
     # ------------------------------------------------------------ parallelism

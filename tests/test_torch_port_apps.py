@@ -268,10 +268,10 @@ def test_mlps_match_flax():
 
 
 @pytest.mark.parametrize("norm_impl,channels", [("xla", 3), ("pallas", 3),
-                                                ("xla", 9)])
+                                                ("xla", 9), ("fast", 3)])
 def test_conv_regressor_and_generator_match_flax(norm_impl, channels):
     """D/DNN and G of the image apps at 3 (age) and 9 channels (driving,
-    frame stack 3) under both norm paths."""
+    frame stack 3) under the three norm paths."""
     rng = generator_for(0, "t")
     x = np.random.default_rng(0).uniform(-1, 1, (3, SIZE, SIZE, channels)
                                          ).astype(np.float32)

@@ -16,6 +16,9 @@ own test of the same quantity where it has one:
 * a bfloat16 forward against the float32 plain version: 0.05.
 """
 
+import functools
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -235,19 +238,21 @@ def test_no_fallback_off_the_cpu():
 
 
 def test_norm_impl_setting():
-    """The port runs "xla" and "pallas"; JAX's A/B-only "fast" raises."""
+    """The port runs the three implementations JAX runs ("xla", "fast"
+    and "pallas"), each its own norm module; an unknown one raises JAX's
+    ``ValueError`` as the models are built."""
     from srgan_tpu_torch import Settings
     from srgan_tpu_torch.experiment import check_supported
-    from srgan_tpu_torch.models.dcgan import GroupNorm, group_norm
-    for impl in ("xla", "pallas"):
+    from srgan_tpu_torch.models.dcgan import (FastGroupNorm, GroupNorm,
+                                              group_norm)
+    for impl in ("xla", "fast", "pallas"):
         check_supported(Settings(norm_impl=impl))
-    with pytest.raises(NotImplementedError, match="fast"):
-        check_supported(Settings(norm_impl="fast"))
     assert isinstance(group_norm(64, torch.float32, "xla"), GroupNorm)
+    assert isinstance(group_norm(64, torch.float32, "fast"), FastGroupNorm)
     assert isinstance(group_norm(64, torch.float32, "pallas"),
                       fn.FusedGroupNormAct)
-    with pytest.raises(ValueError, match="norm_impl"):
-        group_norm(64, torch.float32, "fast")
+    with pytest.raises(ValueError, match="norm_impl 'flax'.*'fast'"):
+        group_norm(64, torch.float32, "flax")
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +314,43 @@ def test_norm_tiling_streams_what_the_cluster_cannot_hold():
     assert bf16.cluster == 16 and bf16.resident_rows == bf16.rows_per_block
     with pytest.raises(ValueError, match="direction"):
         fn.norm_tiling(2, 16, 8, torch.float32, "both")
+
+
+def test_every_source_the_port_builds_is_its_own(tmp_path, monkeypatch):
+    """The compile commands of every CUDA source (``csrc/*.cu``) and of
+    the host tier's library (``csrc/srgan_io.cc``) name only files under
+    ``srgan_tpu_torch/``: the port reads nothing of the JAX package's
+    tree (``native/``) to build."""
+    import subprocess
+
+    import srgan_tpu_torch
+    from srgan_tpu_torch.io import native
+    from srgan_tpu_torch.ops import _build
+    package = os.path.dirname(os.path.abspath(srgan_tpu_torch.__file__))
+    commands = []
+
+    def compile_(cmd, **_):
+        commands.append(cmd)
+        return subprocess.CompletedProcess(cmd, 1, "", "recorded")
+
+    monkeypatch.setattr(subprocess, "run", compile_)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "cuda"))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "host"))
+    names = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR)
+                   if f.endswith(".cu"))
+    assert names == ["copy", "density", "fused_norm", "patches"]
+    for build in [functools.partial(_build.build, n) for n in names] + [
+            native.build_library]:
+        with pytest.raises(RuntimeError, match="recorded"):
+            build()
+    sources = [arg for cmd in commands for arg in cmd
+               if arg.endswith((".cu", ".cc"))]
+    assert len(sources) == len(names) + 1
+    assert sources[-1] == native.SOURCE_PATH
+    for source in sources:
+        assert os.path.isfile(source)
+        assert os.path.commonpath([package, source]) == package, source
 
 
 def test_built_library_name_follows_the_headers(tmp_path, monkeypatch):

@@ -1,10 +1,11 @@
 """The port's host tier against the JAX package's, on the CPU.
 
-``srgan_tpu_torch/io/native.py`` (the port's ctypes wrapper of
-``native/srgan_io.cc``, built into ``srgan_tpu_torch/build/``) gives the
-JAX wrapper's crops bit for bit: the reader's gathers, and the
-prefetcher's batches and draws for the same seed (one worker thread, so
-that the batch order is the seed's alone). The crowd app's host tier
+``srgan_tpu_torch/io/native.py`` (the port's ctypes wrapper of its own
+``srgan_tpu_torch/csrc/srgan_io.cc``, built into
+``srgan_tpu_torch/build/``) gives the JAX wrapper's crops bit for bit:
+the reader's gathers, and the prefetcher's batches and draws for the
+same seed (one worker thread, so that the batch order is the seed's
+alone). The crowd app's host tier
 (``crowd_host_pipeline``) gives JAX's batches, and one step on them
 equals JAX's on the same draws: metrics rtol 1e-3, gradients within
 1e-3 of each tensor's largest (``tests/test_torch_port_train_step.py``

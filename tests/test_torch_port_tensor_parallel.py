@@ -87,7 +87,7 @@ HOST = dict(RESIDENT, crowd_host_pipeline=True, number_of_data_workers=4,
 # conv(3 → 96) → GroupNorm(32 groups) → conv(96 → 6): whole groups on 2
 # ranks, straddling groups on 3.
 BLOCK = dict(cin=3, width=96, cout=6, groups=32)
-NORMS = ("xla", "pallas")
+NORMS = ("xla", "fast", "pallas")
 CROWD_CONVERT = {"d": convert.joint_cnn_state_dict,
                  "g": convert.generator_state_dict,
                  "dnn": convert.joint_cnn_state_dict}

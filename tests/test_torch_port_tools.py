@@ -451,5 +451,5 @@ def test_scale_fidelity_ab(tmp_path, monkeypatch, capsys):
 # -------------------------------------------------------------- native io
 def test_native_library_available():
     if shutil.which("g++") is None:
-        pytest.skip("needs g++ to build native/srgan_io.cc")
+        pytest.skip("needs g++ to build csrc/srgan_io.cc")
     assert native.native_library_available()

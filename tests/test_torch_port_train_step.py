@@ -6,10 +6,11 @@ JAX's z_d, z_g and α are reproduced from the step's key exactly as
 ``make_gan_train_step`` splits it, and fed to the port's step. Compared:
 every metric, the D/G/DNN gradients (recovered on the JAX side from Adam's
 first moment, which after one step is (1 − b1)·g), Adam's moments, and
-the parameters after the step. float32 on the CPU. Both norm paths run:
-``norm_impl="xla"`` (flax GroupNorm; the port's composite) and
-``"pallas"`` (JAX's Pallas kernels in interpret mode; the port's fused
-autograd Functions on their plain versions).
+the parameters after the step. float32 on the CPU. The three norm paths
+run: ``norm_impl="xla"`` (flax GroupNorm; the port's composite),
+``"fast"`` (JAX's FastGroupNorm; the port's) and ``"pallas"`` (JAX's
+Pallas kernels in interpret mode; the port's fused autograd Functions on
+their plain versions).
 
 Tolerances (the two sides sum in different orders: convolutions,
 GroupNorm statistics, the double backward; f32 rounding differs by up to
@@ -79,7 +80,7 @@ def _batch(db_l, db_u, rng):
     return x, y, u
 
 
-@pytest.fixture(scope="module", params=["xla", "pallas"])
+@pytest.fixture(scope="module", params=["xla", "fast", "pallas"])
 def both_steps(request):
     settings = dict(SETTINGS, norm_impl=request.param)
     # ---- JAX: the step as the crowd app builds it ------------------------
