@@ -1,0 +1,13 @@
+"""Stream-wall ms a profiled step under the program's ``step.d.forward``
+span (G(z), D over the 3B batch and at the interpolates, the losses),
+without the penalty's input gradient inside it
+(``step.d.penalty_grad``). The stream's wall time between the timing
+events the program records as the span opens and closes
+(``srgan_tpu_torch/utils/trace.py``), idle moments included: the phase's
+device time only in a device-bound cell."""
+
+from benchmark.harness.program_trace import device_ms_per_step
+
+
+def read(run):
+    return device_ms_per_step(run, ["step.d.forward"])

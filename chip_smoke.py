@@ -2778,10 +2778,13 @@ def _busy(prof) -> tuple:
     """(busy ms, span ms) of the card under ``prof``: the union of its
     operations' intervals (kernels, copies, sets; cuDNN's side streams
     overlap, so a sum would count some twice), and the span from the
-    first operation's start to the last one's end."""
+    first operation's start to the last one's end. The card's copies of
+    host annotations (the program's spans, Adam's ``Optimizer.step``)
+    span whole phases and are no operation: they are left out."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     busy, end = 0.0, -math.inf
     for a, b in spans:
         if b > end:

@@ -81,6 +81,7 @@ from srgan_tpu_torch.parallel.mesh import (all_ranks_agree, data_axis_size,
 from srgan_tpu_torch.train import ModelBundle
 from srgan_tpu_torch.utils.cuda_graph import TrainChunk
 from srgan_tpu_torch.utils.seeding import generator_for
+from srgan_tpu_torch.utils.trace import span
 
 DENSITY_DOWNSAMPLE = 4  # the crowd models' heads emit 1/4-resolution maps
 
@@ -738,10 +739,11 @@ class CrowdExperiment(Experiment):
     def _to_device(self, *arrays: np.ndarray):
         """One host→device copy for all of a step's small int32 arrays,
         from pinned memory so that it does not wait for the device."""
-        flat = torch.from_numpy(self._flat_args(arrays))
-        if self.device.type == "cuda":
-            flat = flat.pin_memory().to(self.device, non_blocking=True)
-        return self._split_args(flat, [a.shape for a in arrays])
+        with span("input.copy"):
+            flat = torch.from_numpy(self._flat_args(arrays))
+            if self.device.type == "cuda":
+                flat = flat.pin_memory().to(self.device, non_blocking=True)
+            return self._split_args(flat, [a.shape for a in arrays])
 
     def _sample_batch(self, labeled_images, labeled_density,
                       unlabeled_images, *args: np.ndarray):
@@ -761,25 +763,26 @@ class CrowdExperiment(Experiment):
         p = self.settings.image_patch_size
         windows = self._rescale_windows
         image = dict(patch_size=p, scale=2.0 / 255.0, shift=-1.0)
-        if windows:
-            patches = extract_rescaled_patches(
-                labeled_images, offs, flips, sidx, window_sizes=windows,
-                indices=idx, **image)
-            # The density mass of the source window survives the resize
-            # (count targets integrate the patch).
-            labels = extract_rescaled_patches(
-                labeled_density, offs, flips, sidx, patch_size=p,
-                window_sizes=windows, preserve_mass=True, indices=idx)
-            upatches = extract_rescaled_patches(
-                unlabeled_images, uoffs, uflips, usidx, window_sizes=windows,
-                indices=uidx, **image)
-        else:
-            patches = extract_patches(labeled_images, offs, flips,
-                                      indices=idx, **image)
-            labels = extract_patches(labeled_density, offs, flips,
-                                     patch_size=p, indices=idx)
-            upatches = extract_patches(unlabeled_images, uoffs, uflips,
-                                       indices=uidx, **image)
+        with span("input.sample"):
+            if windows:
+                patches = extract_rescaled_patches(
+                    labeled_images, offs, flips, sidx, window_sizes=windows,
+                    indices=idx, **image)
+                # The density mass of the source window survives the
+                # resize (count targets integrate the patch).
+                labels = extract_rescaled_patches(
+                    labeled_density, offs, flips, sidx, patch_size=p,
+                    window_sizes=windows, preserve_mass=True, indices=idx)
+                upatches = extract_rescaled_patches(
+                    unlabeled_images, uoffs, uflips, usidx,
+                    window_sizes=windows, indices=uidx, **image)
+            else:
+                patches = extract_patches(labeled_images, offs, flips,
+                                          indices=idx, **image)
+                labels = extract_patches(labeled_density, offs, flips,
+                                         patch_size=p, indices=idx)
+                upatches = extract_patches(unlabeled_images, uoffs, uflips,
+                                           indices=uidx, **image)
         if labels.shape[-1] == 1:
             labels = labels[..., 0]
         return (patches.permute(0, 3, 1, 2), labels,
@@ -826,9 +829,11 @@ class CrowdExperiment(Experiment):
             n_unl = np.repeat(self._unlabeled_local_counts, per)
         share = self.data_share
         while True:
-            draws = (self._random_patch_args(rng, n_lab, hw, batch)
-                     + self._random_patch_args(rng, n_unl, uhw, batch))
-            yield tuple(a[share] for a in draws)
+            with span("input.draws"):
+                draws = (self._random_patch_args(rng, n_lab, hw, batch)
+                         + self._random_patch_args(rng, n_unl, uhw, batch))
+                step_args = tuple(a[share] for a in draws)
+            yield step_args
 
     def epoch_batch_iterators(self):
         if self.settings.crowd_host_pipeline:
@@ -941,10 +946,13 @@ class CrowdExperiment(Experiment):
         which the next chunk overwrites). The chunk's graph is the one of
         the G update's phase at its first step."""
         K = self.settings.steps_per_dispatch
-        stacked = np.stack([self._flat_args(next(args)) for _ in range(K)])
-        step = self.state.step
-        metrics = self._train_chunk(
-            stacked, key=step % self.settings.generator_training_step_period)
+        with span("loop.chunk"):
+            stacked = np.stack([self._flat_args(next(args))
+                                for _ in range(K)])
+            step = self.state.step
+            metrics = self._train_chunk(
+                stacked,
+                key=step % self.settings.generator_training_step_period)
         self.state.step = step + K
         return metrics
 

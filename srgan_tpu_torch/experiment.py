@@ -25,8 +25,11 @@ state from the last checkpoint into this process.
 
 ``dnn_only`` trains the DNN alone (``make_dnn_train_step``);
 ``profile_step_range`` traces steps ``[start, end)`` with
-``torch.profiler`` into ``<trial>/profile/``; ``debug_nans`` turns on
-autograd's anomaly mode for ``train()`` and checks every step's metrics.
+``torch.profiler`` into ``<trial>/profile/``, the program's spans
+(``utils/trace.py``: ``loop.step``, ``loop.summary``, the crowd app's
+``loop.chunk`` and input, and the step's phases) on its timeline;
+``debug_nans`` turns on autograd's anomaly mode for ``train()`` and
+checks every step's metrics.
 ``steps_per_dispatch`` > 1 runs K steps a dispatch in the crowd app alone
 (``apps/crowd.py``); this class's loop refuses it, as JAX's does.
 
@@ -64,6 +67,7 @@ from srgan_tpu_torch.train import (ModelBundle, SRGANTrainState,
                                    default_labeled_loss_fn, init_train_state,
                                    make_dnn_train_step, make_gan_train_step,
                                    set_float32_precision)
+from srgan_tpu_torch.utils import trace
 from srgan_tpu_torch.utils.device import default_device
 from srgan_tpu_torch.utils.seeding import generator_for, seed_all
 from srgan_tpu_torch.utils.summary import SummaryWriter, make_trial_directory
@@ -434,7 +438,8 @@ class Experiment:
         self.dnn_summary_writer.step = step
         if not self.gan_summary_writer.is_summary_step():
             return
-        self.write_step_summaries(step_metrics())
+        with trace.span("loop.summary"):
+            self.write_step_summaries(step_metrics())
         now = time.perf_counter()
         if self._last_summary is not None and step > self._last_summary[1]:
             last_time, last_step = self._last_summary
@@ -447,10 +452,11 @@ class Experiment:
         self._last_summary = (now, step)
 
     def _step(self, labeled_x, labels, unlabeled_x):
-        if self.settings.dnn_only:
-            return self._train_step(self.state, labeled_x, labels)
-        return self._train_step(self.state, labeled_x, labels, unlabeled_x,
-                                self._rng)
+        with trace.span("loop.step"):
+            if self.settings.dnn_only:
+                return self._train_step(self.state, labeled_x, labels)
+            return self._train_step(self.state, labeled_x, labels,
+                                    unlabeled_x, self._rng)
 
     def _start_profiler(self) -> torch.profiler.profile:
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -463,7 +469,9 @@ class Experiment:
     def _stop_profiler(self, profiler: torch.profiler.profile) -> None:
         """Stop ``profiler`` and write its Chrome trace to
         ``<trial>/profile/steps_<start>_<end>.json``, once the card has
-        run what was enqueued."""
+        run what was enqueued. The program's spans are on while the
+        profiler records (``utils/trace.py``): the trace shows them, and
+        the copies they kept are dropped."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         profiler.stop()
@@ -472,6 +480,7 @@ class Experiment:
         os.makedirs(directory, exist_ok=True)
         profiler.export_chrome_trace(
             os.path.join(directory, f"steps_{start}_{end}.json"))
+        trace.take()
 
     def steps_per_epoch(self) -> int:
         return max(1, len(self.labeled_dataset) // self.settings.batch_size)

@@ -12,9 +12,13 @@ step of ``Settings.dnn_only``). One SR-GAN step runs, in this order:
 
 Each model's gradient is taken with ``torch.autograd.grad`` over its own
 parameters, so no stray gradients collect in another model's ``.grad``;
-then its Adam takes a step. PyTorch runs eagerly: the step updates the
-modules and optimizers of the state in place, where the JAX step returns
-a new state.
+then its Adam takes a step. Each model's forward, gradient and update
+run under a timed span of ``utils/trace.py`` (``step.d.forward``,
+holding the penalty's input gradient ``step.d.penalty_grad``,
+``step.d.backward``, ``step.d.adam``; the same three for ``g`` and
+``dnn``). PyTorch runs
+eagerly: the step updates the modules and optimizers of the state in
+place, where the JAX step returns a new state.
 
 Under data parallelism (``dp``) each rank holds its share of the global
 batch and the losses are the global batch's (``losses``): replicated on
@@ -51,6 +55,7 @@ from srgan_tpu_torch.parallel.mesh import (DataParallel, average_gradients,
                                            broadcast_module)
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.utils.mixture import sample_offset_normal
+from srgan_tpu_torch.utils.trace import span
 
 Tensor = torch.Tensor
 
@@ -197,6 +202,21 @@ HYPER_KEYS = ("unlabeled_loss_multiplier", "fake_loss_multiplier",
               "gradient_penalty_multiplier", "learning_rate")
 
 
+def _dnn_update(state: SRGANTrainState, labeled_x: Tensor, labels,
+                labeled_loss_fn: Callable, dp: Optional[DataParallel],
+                update: Callable) -> Tensor:
+    """The supervised DNN's forward, gradient and ``update(opt, grads)``,
+    each under its span; returns its loss."""
+    with span("step.dnn.forward", timed=True):
+        pred, _ = state.dnn(labeled_x)
+        loss = losses.global_mean(labeled_loss_fn(pred, labels), dp)
+    with span("step.dnn.backward", timed=True):
+        grads = torch.autograd.grad(loss, state.dnn_opt.params)
+    with span("step.dnn.adam", timed=True):
+        update(state.dnn_opt, grads)
+    return loss
+
+
 def _slice_predictions(predictions, end: int):
     if isinstance(predictions, (tuple, list)):
         return type(predictions)(p[:end] for p in predictions)
@@ -307,8 +327,9 @@ def make_gan_train_step(
         # W times the example's own: a cotangent of 1/W undoes it.
         cotangent = (None if dp is None
                      else torch.full_like(inner, 1.0 / dp.world_size))
-        (interp_grads,) = torch.autograd.grad(
-            inner, interp, grad_outputs=cotangent, create_graph=True)
+        with span("step.d.penalty_grad", timed=True):
+            (interp_grads,) = torch.autograd.grad(
+                inner, interp, grad_outputs=cotangent, create_graph=True)
         gp = losses.gradient_penalty(interp_grads, multiplier=gp_mult,
                                      dp=dp)
         total = l_loss + u_loss + f_loss + gp
@@ -345,27 +366,31 @@ def make_gan_train_step(
 
         # ---- D update ----------------------------------------------------
         d_params = state.d_opt.params
-        total, metrics = d_loss(state, labeled_x, labels, unlabeled_x,
-                                z_d, alpha)
-        d_grads = torch.autograd.grad(total, d_params)
+        with span("step.d.forward", timed=True):
+            total, metrics = d_loss(state, labeled_x, labels, unlabeled_x,
+                                    z_d, alpha)
+        with span("step.d.backward", timed=True):
+            d_grads = torch.autograd.grad(total, d_params)
         del total
-        update(state.d_opt, d_grads)
+        with span("step.d.adam", timed=True):
+            update(state.d_opt, d_grads)
 
         # ---- G update (every `generator_training_step_period` steps) -----
         if period == 1 or state.step % period == 0:
-            loss = g_loss(state, unlabeled_x, z_g)
-            g_grads = torch.autograd.grad(loss, state.g_opt.params)
-            update(state.g_opt, g_grads)
+            with span("step.g.forward", timed=True):
+                loss = g_loss(state, unlabeled_x, z_g)
+            with span("step.g.backward", timed=True):
+                g_grads = torch.autograd.grad(loss, state.g_opt.params)
+            with span("step.g.adam", timed=True):
+                update(state.g_opt, g_grads)
             metrics["g_loss"] = loss.detach()
         else:
             metrics["g_loss"] = torch.zeros((), device=unlabeled_x.device)
 
         # ---- DNN baseline update -----------------------------------------
         if state.dnn is not None:
-            pred, _ = state.dnn(labeled_x)
-            loss = losses.global_mean(labeled_loss_fn(pred, labels), dp)
-            dnn_grads = torch.autograd.grad(loss, state.dnn_opt.params)
-            update(state.dnn_opt, dnn_grads)
+            loss = _dnn_update(state, labeled_x, labels, labeled_loss_fn,
+                              dp, update)
             metrics["dnn_loss"] = loss.detach()
 
         state.step += 1
@@ -390,10 +415,8 @@ def make_dnn_train_step(
              ) -> Tuple[SRGANTrainState, Dict[str, Tensor]]:
         if state.dnn is None:
             raise ValueError("the DNN-only step needs a DNN in the state")
-        pred, _ = state.dnn(labeled_x)
-        loss = losses.global_mean(labeled_loss_fn(pred, labels), dp)
-        grads = torch.autograd.grad(loss, state.dnn_opt.params)
-        state.dnn_opt.step(grads)
+        loss = _dnn_update(state, labeled_x, labels, labeled_loss_fn, dp,
+                          lambda opt, grads: opt.step(grads))
         state.step += 1
         return state, {"dnn_loss": loss.detach()}
 

@@ -7,6 +7,7 @@ machine with the card:
 (``--noconftest``: the suite's conftest configures JAX.)
 """
 
+import contextlib
 import time
 
 import numpy as np
@@ -756,6 +757,49 @@ def test_chunk_replays_are_their_eager_steps_bit_for_bit(tmp_path,
         for k, v in models_b[name].items():
             assert torch.equal(models_a[name][k], v), (name, k)
     assert torch.equal(rng_a, rng_b) and step_a == step_b == 6
+
+
+def test_spans_leave_chunks_bit_for_bit_and_a_replay_is_one_span(
+        tmp_path, monkeypatch):
+    """3 chunks of 2 with the program's spans on (a profiler records),
+    against the same with no profiler (after a throwaway chunk, as
+    above): metrics and models bit for bit. Each chunk is one host-only
+    ``loop.chunk`` span; the eager chunk's step phases are timed on the
+    card, the capture's are host-only, and a replay has none."""
+    from srgan_tpu_torch.utils import trace
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    warm = _manual_crowd(tmp_path)
+    warm.dispatch_chunk(warm._patch_args_stream())
+    runs = []
+    trace.take()
+    for on in (False, True):
+        profiler = (torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) if on
+            else contextlib.nullcontext())
+        with profiler:
+            exp = _manual_crowd(tmp_path)
+            args = exp._patch_args_stream()
+            metrics = [{k: v.cpu() for k, v in exp.dispatch_chunk(
+                args).items()} for _ in range(3)]
+            runs.append((metrics, {n: getattr(exp.state, n).state_dict()
+                                   for n in ("d", "g", "dnn")}))
+            spans = trace.take().spans
+    (a, models_a), (b, models_b) = runs
+    for x, y in zip(a, b):
+        for k in y:
+            assert torch.equal(x[k], y[k]), k
+    for name in models_b:
+        for k, v in models_b[name].items():
+            assert torch.equal(models_a[name][k], v), (name, k)
+    chunks = [s for s in spans if s.name == "loop.chunk"]
+    assert len(chunks) == 3
+    assert all(s.device_self_ms is None for s in chunks)
+    backward = [s for s in spans if s.name == "step.d.backward"]
+    assert len(backward) == 4  # 2 eager steps, 2 captured, 0 replayed
+    assert [s.device_self_ms is not None for s in backward] == [
+        True, True, False, False]
+    assert all(s.device_self_ms > 0 for s in backward[:2])
 
 
 def test_each_replay_draws_from_where_the_generator_stands():

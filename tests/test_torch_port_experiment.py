@@ -16,6 +16,7 @@ from srgan_tpu_torch.apps.age import AgeExperiment
 from srgan_tpu_torch.apps.coefficient import CoefficientExperiment
 from srgan_tpu_torch.apps.driving import DrivingExperiment
 from srgan_tpu_torch.settings import Settings
+from srgan_tpu_torch.utils import trace as spans
 
 TINY = dict(batch_size=4, age_image_size=32, model_base_width=8,
             latent_dimension=16, hidden_size=8, labeled_dataset_size=8,
@@ -143,7 +144,8 @@ def test_debug_nans_restores_anomaly_mode_and_raises(tmp_path,
 @pytest.mark.parametrize("steps,window", [(5, (1, 3)), (3, (2, 9))])
 def test_profile_step_range_writes_a_trace(tmp_path, steps, window):
     """Steps [start, end) are traced into <trial>/profile/; a run that
-    ends inside the window writes its trace at the end."""
+    ends inside the window writes its trace at the end. The program's
+    spans of those steps are on the trace's timeline."""
     exp = _train(tmp_path, "coefficient", steps_to_run=steps,
                  profile_step_range=window)
     path = os.path.join(exp.trial_directory, "profile",
@@ -152,3 +154,9 @@ def test_profile_step_range_writes_a_trace(tmp_path, steps, window):
         trace = json.load(f)
     assert trace["traceEvents"]
     assert not torch.autograd.profiler._is_profiler_enabled
+    traced = [e for e in trace["traceEvents"]
+              if e.get("name") == "loop.step" and e.get("ph") == "X"]
+    assert len(traced) == min(steps, window[1]) - window[0]
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert {"step.d.penalty_grad", "step.dnn.adam"} <= names
+    assert spans.take().spans == []  # the range's copies were dropped
