@@ -25,6 +25,10 @@ What differs from torch's own layers, and is matched here:
   dtype; GroupNorm computes in float32 and returns the compute dtype. The
   ``"xla"`` path casts before its activation, the fused ``"pallas"`` path
   after it, as in JAX.
+* :class:`Conv` runs through :func:`conv`, whose second order (the
+  gradient penalty's) is cuDNN's weight- and data-gradient calls, not
+  PyTorch's convolution by a filter as large as the feature map; its
+  first order is autograd's own call.
 * Random init follows flax's defaults: LeCun-normal kernels (a normal
   truncated at ±2σ, σ = 1/√fan_in / 0.8796), zero biases, unit norm
   scales. It draws from an explicit ``torch.Generator`` (``rng``).
@@ -61,6 +65,142 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _engine_wants(ctx, n: int) -> List[bool]:
+    """Whether the autograd engine will use the gradient of each of the
+    first ``n`` tensor inputs of the Function whose backward ``ctx`` is:
+    what ``ConvolutionBackward0`` asks the engine before it picks its
+    ``output_mask``. The engine answers for a non-leaf edge only (under
+    ``autograd.grad`` it raises on a leaf), so :func:`conv` gives the
+    Functions non-leaf inputs."""
+    return [bool(ctx.needs_input_grad[i]) and node is not None
+            and torch._C._will_engine_execute_node(node)
+            for i, (node, _) in enumerate(ctx.next_functions[:n])]
+
+
+def _non_leaf(t: torch.Tensor) -> torch.Tensor:
+    return t.view_as(t) if t.requires_grad and t.grad_fn is None else t
+
+
+def _channels_last(t: torch.Tensor) -> torch.Tensor:
+    if t.is_contiguous(memory_format=torch.channels_last):
+        return t
+    conv.layout_copies += 1
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _conv_backward(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                   stride: int, padding: Tuple[int, int],
+                   mask: List[bool]):
+    """(dx, dw, db) of ``conv2d(x, w, b)`` for the incoming ``dy``, those
+    of ``mask`` only: the call autograd's ``ConvolutionBackward0`` makes,
+    cuDNN's data- and weight-gradient kernels on the card."""
+    return torch.ops.aten.convolution_backward.default(
+        dy, x, w, [w.shape[0]], [stride, stride], list(padding), [1, 1],
+        False, [0, 0], 1, mask)
+
+
+class _ConvBwd(torch.autograd.Function):
+    """(dy, x, w) ↦ (dx, dw, db) by one ``convolution_backward`` call;
+    differentiable for the gradient penalty."""
+
+    @staticmethod
+    def forward(ctx, dy, x, w, stride, padding, mask):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(dy, x, w)
+        ctx.config = (stride, padding)
+        return _conv_backward(dy, x, w, stride, padding, mask)
+
+    @staticmethod
+    def backward(ctx, g_dx, g_dw, g_db):
+        """The second order from the first order's own calls.
+
+        dx = dgrad(dy, w), dw = wgrad(x, dy) and db = Σ dy are linear in
+        dy, and dx in w and dw in x, so their VJP is:
+
+        * for dy: conv2d(g_dx, w) + conv2d(x, g_dw) + g_db;
+        * for x: dgrad(dy, g_dw);
+        * for w: wgrad(g_dx, dy): the weight-gradient call with g_dx as
+          its input.
+
+        PyTorch's own rule (``_convolution_double_backward``) takes the
+        last as a convolution of x's transpose [C, B, H, W] by dy's
+        [O, B, H', W']: a filter as large as the feature map, for which
+        cuDNN has only its legacy non-tensor-core kernels. Here every
+        call is one that a first-order step makes, on ``channels_last``
+        operands (each copy to it adds one to ``conv.layout_copies``).
+        Differentiable torch calls throughout, so a third order holds.
+        """
+        dy, x, w = ctx.saved_tensors
+        stride, padding = ctx.config
+        conv.second_order += 1
+        want_dy, want_x, want_w = _engine_wants(ctx, 3)
+        want_x = want_x and g_dw is not None
+        want_w = want_w and g_dx is not None
+        if g_dx is not None and (want_dy or want_w):
+            g_dx = _channels_last(g_dx)
+        if want_x or want_w:
+            dy = _channels_last(dy)
+        g_dy = g_x = g_w = None
+        if want_dy:
+            if g_dx is not None:
+                g_dy = F.conv2d(g_dx, w, stride=stride, padding=padding)
+            if g_dw is not None:
+                term = F.conv2d(x, g_dw, stride=stride, padding=padding)
+                g_dy = term if g_dy is None else g_dy + term
+            if g_db is not None:
+                term = g_db.view(1, -1, 1, 1)
+                g_dy = (term.expand_as(dy) if g_dy is None
+                        else g_dy + term)
+        if want_x:
+            g_x = _conv_backward(dy, x, g_dw, stride, padding,
+                                 [True, False, False])[0]
+        if want_w:
+            g_w = _conv_backward(dy, g_dx, w, stride, padding,
+                                 [False, True, False])[1]
+        return g_dy, g_x, g_w, None, None, None
+
+
+class _ConvFwd(torch.autograd.Function):
+    """(x, w, b) ↦ conv2d(x, w, b); its backward is :class:`_ConvBwd`,
+    which asks for the gradients the engine will use, so it stays
+    differentiable and first-order users make the calls they always
+    made."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.config = (stride, padding)
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        mask = _engine_wants(ctx, 3)
+        if torch.is_grad_enabled():  # create_graph: a second order may follow
+            dx, dw, db = _ConvBwd.apply(_non_leaf(dy), x, w, *ctx.config,
+                                        mask)
+        else:
+            dx, dw, db = _conv_backward(dy, x, w, *ctx.config, mask)
+        return dx, dw, db, None, None
+
+
+def conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+         stride: int, padding: Tuple[int, int]) -> torch.Tensor:
+    """``F.conv2d(x, weight, bias, stride, padding)`` with the second
+    order of :class:`_ConvBwd`. ``conv.second_order`` counts the runs of
+    that second order (the gradient penalty's, one a layer between the
+    interpolates and the features), ``conv.layout_copies`` the copies to
+    ``channels_last`` it made."""
+    if not torch.is_grad_enabled():
+        return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+    return _ConvFwd.apply(_non_leaf(x), _non_leaf(weight),
+                          _non_leaf(bias), stride, padding)
+
+
+conv.second_order = 0
+conv.layout_copies = 0
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv`` with ``padding="SAME"``: weight [out, in, k, k]."""
 
@@ -88,10 +228,9 @@ class Conv(nn.Module):
             padding = (h_lo, w_lo)
         else:
             x = F.pad(x, (w_lo, w_hi, h_lo, h_hi))
-            padding = 0
-        return F.conv2d(x, self.weight.to(self.dtype),
-                        self.bias.to(self.dtype), stride=self.stride,
-                        padding=padding)
+            padding = (0, 0)
+        return conv(x, self.weight.to(self.dtype), self.bias.to(self.dtype),
+                    self.stride, padding)
 
 
 class ConvTranspose(nn.Module):

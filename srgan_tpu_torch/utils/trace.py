@@ -169,7 +169,9 @@ def take() -> Recording:
 
 
 def counters() -> Dict[str, int]:
-    """The launch counters as they stand, by the name they live under."""
+    """The launch and copy counters as they stand, by the name they live
+    under."""
+    from srgan_tpu_torch.models.dcgan import conv
     from srgan_tpu_torch.ops import fused_norm
     from srgan_tpu_torch.ops.density import density_maps
     from srgan_tpu_torch.ops.patches import (extract_patches,
@@ -186,4 +188,6 @@ def counters() -> Dict[str, int]:
         "density_maps.launches": density_maps.launches,
         "TrainChunk.captures": TrainChunk.captures,
         "TrainChunk.replays": TrainChunk.replays,
+        "conv.second_order": conv.second_order,
+        "conv.layout_copies": conv.layout_copies,
     }

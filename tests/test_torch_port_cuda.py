@@ -368,6 +368,62 @@ def test_fused_norm_second_order_through_the_kernels():
     torch.testing.assert_close(got, penalty(plain), rtol=1e-3, atol=1e-6)
 
 
+# The flagship JointCNN trunk's four 3×3 convolutions at batch 8: the
+# input after SAME padding (F.pad's (0, 1) at stride 2), the output
+# channels, the stride and conv2d's own padding.
+TRUNK_CONVS = [((8, 3, 225, 225), 64, 2, (0, 0)),
+               ((8, 64, 113, 113), 128, 2, (0, 0)),
+               ((8, 128, 56, 56), 256, 1, (1, 1)),
+               ((8, 256, 56, 56), 256, 1, (1, 1))]
+
+
+@pytest.mark.parametrize("shape,out,stride,padding", TRUNK_CONVS)
+def test_conv_second_order_takes_tensor_core_weight_gradients(
+        shape, out, stride, padding):
+    """The second order of ``models/dcgan.py``'s conv, bf16 in
+    channels_last, against autograd's own double backward of
+    ``convolution_backward``: the weight's gradient and dy's within
+    bf16 rounding, dy's channels_last, and no legacy
+    ``implicit_convolve_sgemm`` kernel in the rule."""
+    from srgan_tpu_torch.models.dcgan import _ConvBwd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    side = (shape[2] + 2 * padding[0] - 3) // stride + 1
+
+    def bf16(*s, scale=1.0):
+        t = torch.randn(s, generator=gen, device=dev) * scale
+        return t.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    x = bf16(*shape)
+    w = bf16(out, shape[1], 3, 3, scale=(9 * shape[1]) ** -0.5)
+    w.requires_grad_(True)
+    dy = bf16(shape[0], out, side, side).requires_grad_(True)
+    g_dx = bf16(*shape)
+    mask = [True, False, False]
+    dx = _ConvBwd.apply(dy.view_as(dy), x, w.view_as(w), stride, padding,
+                        mask)[0]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got_dy, got_w = torch.autograd.grad(dx, (dy, w), g_dx)
+        torch.cuda.synchronize()
+    native = torch.ops.aten.convolution_backward(
+        dy, x, w, [out], [stride, stride], list(padding), [1, 1], False,
+        [0, 0], 1, mask)[0]
+    want_dy, want_w = torch.autograd.grad(native, (dy, w), g_dx)
+    for got, want in ((got_w, want_w), (got_dy, want_dy)):
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
+    assert got_dy.is_contiguous(memory_format=torch.channels_last)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels, "the profiler recorded no kernel"
+    assert not [k for k in kernels if "implicit_convolve_sgemm" in k], \
+        kernels
+
+
 def test_fused_norm_launchers_reject_what_the_kernels_do_not_take():
     x, scale, bias, dy = _norm_inputs((2, 16, 64), torch.float32)
     with pytest.raises(TypeError, match="dtype"):

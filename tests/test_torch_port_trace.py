@@ -16,6 +16,7 @@ import torch
 
 from srgan_tpu_torch.apps.coefficient import CoefficientExperiment
 from srgan_tpu_torch.apps.crowd import CrowdExperiment
+from srgan_tpu_torch.models.dcgan import conv
 from srgan_tpu_torch.ops import fused_norm
 from srgan_tpu_torch.ops.density import density_maps
 from srgan_tpu_torch.ops.patches import (extract_patches,
@@ -319,7 +320,9 @@ def test_counters_read_the_attributes_they_name(monkeypatch):
                  (fused_norm.group_norm_act, "layout_copies"),
              "density_maps.launches": (density_maps, "launches"),
              "TrainChunk.captures": (TrainChunk, "captures"),
-             "TrainChunk.replays": (TrainChunk, "replays")}
+             "TrainChunk.replays": (TrainChunk, "replays"),
+             "conv.second_order": (conv, "second_order"),
+             "conv.layout_copies": (conv, "layout_copies")}
     for i, (owner, attr) in enumerate(where.values()):
         monkeypatch.setattr(owner, attr, 1000 + i)
     assert trace.counters() == {name: 1000 + i
