@@ -31,8 +31,11 @@ overlap-averaged density canvas, whose sum is the image's count.
 Validation writes MAE/RMSE/NVE/NAE for both models, G samples and
 (input | truth | prediction) density triptychs.
 
-The model is ``CROWD_MODELS[crowd_model]``: JointCNN, JointDCNN or
-SpatialPyramidCNN.
+The model is ``CROWD_MODELS[crowd_model]``: JointCNN, JointDCNN,
+SpatialPyramidCNN or CSRNet. Its heads emit maps at 1/``OUTPUT_STRIDE``
+of the patch's side (4, CSRNet 8): the labeled loss, the head biases,
+the aux target and the evaluation grid read the stride of the model in
+use, and a patch size that it does not divide is refused.
 
 Under data parallelism every rank draws the global batch's patch
 arguments from the same stream and cuts its share of the patches with
@@ -83,7 +86,14 @@ from srgan_tpu_torch.utils.cuda_graph import TrainChunk
 from srgan_tpu_torch.utils.seeding import generator_for
 from srgan_tpu_torch.utils.trace import span
 
-DENSITY_DOWNSAMPLE = 4  # the crowd models' heads emit 1/4-resolution maps
+
+def crowd_model_class(name: str):
+    """``CROWD_MODELS[name]``, or JAX's error for an unknown name."""
+    try:
+        return CROWD_MODELS[name]
+    except KeyError:
+        raise ValueError(f"unknown crowd_model {name!r}; choose from "
+                         f"{sorted(CROWD_MODELS)}") from None
 
 
 def shard_local_counts(n: int, num_shards: int) -> np.ndarray:
@@ -177,6 +187,11 @@ class CrowdExperiment(Experiment):
                 make(settings.validation_dataset_size,
                      seed=settings.seed + 2),
                 make(settings.test_dataset_size, seed=settings.seed + 3))
+
+    @property
+    def output_stride(self) -> int:
+        """The side of the patch over that of the model's maps."""
+        return crowd_model_class(self.settings.crowd_model).OUTPUT_STRIDE
 
     @property
     def uses_aux_target(self) -> bool:
@@ -590,21 +605,17 @@ class CrowdExperiment(Experiment):
         settings = self.settings
         dtype = getattr(torch, settings.compute_dtype)
         w = settings.model_base_width
-        try:
-            model_cls = CROWD_MODELS[settings.crowd_model]
-        except KeyError:
-            raise ValueError(
-                f"unknown crowd_model {settings.crowd_model!r}; choose "
-                f"from {sorted(CROWD_MODELS)}") from None
+        model_cls = crowd_model_class(settings.crowd_model)
         if model_cls is SpatialPyramidCNN:  # its levels follow the map
             model_cls = functools.partial(
                 model_cls, image_size=settings.image_patch_size)
         # Dataset-mean per-cell head biases: with zero-init kernels the
         # step-0 prediction is the dataset-mean map and count. The density
-        # head regresses sum_pool(density, 4), i.e. 16 × the mean pixel,
-        # or in aux mode the mean-pooled aux map, i.e. its mean.
+        # head regresses sum_pool(density, f) for the output stride f,
+        # i.e. f² × the mean pixel, or in aux mode the mean-pooled aux
+        # map, i.e. its mean.
         if settings.zero_init_heads:
-            cell = DENSITY_DOWNSAMPLE ** 2
+            cell = self.output_stride ** 2
             loaded = self.labeled_db is not None
             mean_px = (float(np.mean(self.labeled_db.density_maps))
                        if loaded else 0.0)
@@ -656,22 +667,23 @@ class CrowdExperiment(Experiment):
     # --------------------------------------------------------------- loss
     def labeled_loss_fn(self):
         """Joint density-map + count loss. predictions: (density_map,
-        count_map), each [B, P/4, P/4]; labels: density patches [B, P, P],
+        count_map), each [B, P/f, P/f] for the model's output stride f;
+        labels: density patches [B, P, P],
         or [B, P, P, 2] (density, aux) with a kNN/iKNN target, whose map
         head regresses the mean-pooled aux map (value-like, not
         mass-like) while the counts come from the density channel."""
         settings = self.settings
         aux_mode = self.uses_aux_target
+        f = self.output_stride
 
         def loss_fn(predictions, labels):
             density_map, count_map = predictions
             if aux_mode:
                 density_ch = labels[..., 0]
-                map_target = (sum_pool(labels[..., 1], DENSITY_DOWNSAMPLE)
-                              / DENSITY_DOWNSAMPLE ** 2)
+                map_target = sum_pool(labels[..., 1], f) / f ** 2
             else:
                 density_ch = labels
-                map_target = sum_pool(labels, DENSITY_DOWNSAMPLE)
+                map_target = sum_pool(labels, f)
             map_loss = (density_map - map_target).square().mean()
             true_count = density_ch.sum(dim=(1, 2))
             pred_count = count_map.sum(dim=(1, 2))
@@ -890,9 +902,23 @@ class CrowdExperiment(Experiment):
             self.device, self._rng)
 
     def check_settings(self) -> None:
-        """JAX's refusals of ``steps_per_dispatch`` > 1, with its
-        messages; ``train()`` checks them before it spawns ranks."""
+        """A patch size that the model's output stride does not divide,
+        a model without tensor parallelism under it, and JAX's refusals of
+        ``steps_per_dispatch`` > 1, with its messages; ``train()`` checks
+        them before it spawns ranks."""
         settings = self.settings
+        p, f = settings.image_patch_size, self.output_stride
+        if p % f:
+            raise ValueError(
+                f"image_patch_size={p} is not a multiple of crowd_model "
+                f"{settings.crowd_model!r}'s output stride {f}: its maps "
+                f"are 1/{f} of the patch's side")
+        if (not crowd_model_class(settings.crowd_model).TENSOR_PARALLEL
+                and settings.model_parallel_devices > 1):
+            raise ValueError(
+                f"crowd_model {settings.crowd_model!r} does not run under "
+                f"model_parallel_devices > 1 (tensor parallelism covers "
+                f"the JointCNN family); use model_parallel_devices=1")
         if settings.steps_per_dispatch <= 1:
             return
         if settings.crowd_host_pipeline:
@@ -1106,16 +1132,17 @@ class CrowdExperiment(Experiment):
                         return_maps: bool = False):
         """Build (cached) the grid evaluator for one image size:
         ``(model, images, ids[k], masks[k]) → counts[k]``, or the
-        overlap-averaged density canvases ``[k, H/4, W/4]`` with
-        ``return_maps``. One patch-kernel call cuts the k·g grid patches;
-        the model runs under ``torch.inference_mode``; the g maps add into
-        the canvas in grid order, then ``canvas · inv_weight · mask``, the
-        order of JAX's ``fori_loop``."""
+        overlap-averaged density canvases ``[k, H/f, W/f]`` with
+        ``return_maps`` (f: the output stride). One patch-kernel call cuts
+        the k·g grid patches; the model runs under
+        ``torch.inference_mode``; the g maps add into the canvas in grid
+        order, then ``canvas · inv_weight · mask``, the order of JAX's
+        ``fori_loop``."""
         key = self._grid_fn_key(image_hw, use_dnn, return_maps)
         if key in self._grid_count_fns:
             return self._grid_count_fns[key]
         p = self.settings.image_patch_size
-        f = DENSITY_DOWNSAMPLE
+        f = self.output_stride
         h, w = image_hw
         pf = p // f
         offsets = self._grid_offsets((h, w))
@@ -1156,7 +1183,7 @@ class CrowdExperiment(Experiment):
     def predict_density_maps(self, use_dnn: Optional[bool] = None,
                              db: Optional[CrowdDatabase] = None,
                              limit: Optional[int] = None) -> np.ndarray:
-        """Predicted density maps ``[N, H/4, W/4]`` of a split (default:
+        """Predicted density maps ``[N, H/f, W/f]`` of a split (default:
         validation): the overlap-averaged grid canvases that the counts
         integrate, ROI masks applied. ``limit`` evaluates only the first
         N examples."""
@@ -1206,7 +1233,7 @@ class CrowdExperiment(Experiment):
         # ROI masks: fractional f×f coverage at density resolution;
         # without ROI a broadcastable [N, 1, 1] of ones.
         h, w = db.image_size
-        f = DENSITY_DOWNSAMPLE
+        f = self.output_stride
         n = len(db) if limit is None else min(limit, len(db))
         if db.roi_masks is not None:
             mask_ds = db.roi_masks[:n].reshape(
@@ -1290,7 +1317,7 @@ class CrowdExperiment(Experiment):
         canvases."""
         db = self.validation_db
         k = min(self.settings.crowd_summary_image_count, len(db))
-        f = DENSITY_DOWNSAMPLE
+        f = self.output_stride
         h, w = db.image_size
         for i in range(k):
             gt = db.density_maps[i].astype(np.float32)

@@ -2,9 +2,11 @@
 generator.
 
 The port of ``srgan_tpu.models.crowd``: ``JointCNN``, ``JointDCNN``,
-``SpatialPyramidCNN``, ``CROWD_MODELS`` and ``CrowdDCGenerator``. Every
-crowd network maps an image patch to a (density map, count map) pair at
-1/4 resolution and globally pooled trunk features.
+``SpatialPyramidCNN``, ``CROWD_MODELS`` and ``CrowdDCGenerator``; and
+``CSRNet``, which the JAX package does not have. Every crowd network maps
+an image patch to a (density map, count map) pair at 1/``OUTPUT_STRIDE``
+resolution (4 for the JointCNN family, 8 for CSRNet) and globally pooled
+trunk features.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ class JointCNN(nn.Module):
     """
 
     TRUNK: Tuple[int, ...] = (4, 4)
+    OUTPUT_STRIDE = 4  # the heads' maps are 1/4 of the patch's side
+    TENSOR_PARALLEL = True  # parallel/tp.py shards its layers
 
     def __init__(self, base_width: int = 64, *,
                  dtype: torch.dtype = torch.float32, norm_impl: str = "xla",
@@ -145,10 +149,74 @@ class SpatialPyramidCNN(JointCNN):
         return torch.cat(parts, dim=1)
 
 
+class CSRNet(nn.Module):
+    """CSRNet (Li, Zhang and Chen, CVPR 2018, arXiv:1802.10062;
+    configuration B), with the port's two-head crowd contract.
+
+    Input: [B, 3, P, P] float32. The frontend is VGG-16's first ten 3×3
+    convolutions, ``FRONTEND`` (``"M"``: a 2×2 max-pool of stride 2), the
+    backend six 3×3 convolutions of dilation 2, ``BACKEND``; each
+    convolution pads ``SAME`` (the published padding 1 and 2 at stride 1)
+    and is followed by a ReLU. Widths are the published ones at base
+    width 64, scaled by ``base_width / 64``. The density and count heads
+    are 1×1 convolutions on the last backend layer, at 1/8 resolution;
+    ``features`` is that layer's global mean. The published model has no
+    norm: ``norm_impl`` and ``use_norm`` are taken and have no effect.
+    ``zero_init_heads`` as :class:`JointCNN`'s.
+    """
+
+    FRONTEND: Tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+                       512, 512, 512)
+    BACKEND: Tuple[int, ...] = (512, 512, 512, 256, 128, 64)
+    OUTPUT_STRIDE = 8
+    TENSOR_PARALLEL = False  # not laid out for parallel/tp.py
+
+    def __init__(self, base_width: int = 64, *,
+                 dtype: torch.dtype = torch.float32, norm_impl: str = "xla",
+                 use_norm: bool = True, zero_init_heads: bool = True,
+                 density_head_bias: float = 0.0,
+                 count_head_bias: float = 0.0, rng: torch.Generator):
+        super().__init__()
+        del norm_impl, use_norm  # no norm layers
+        width = lambda c: c * base_width // 64  # noqa: E731
+        cin, convs, self.pool_after = 3, [], []
+        for item in self.FRONTEND:
+            if item == "M":
+                self.pool_after.append(len(convs) - 1)
+                continue
+            convs.append(Conv(cin, width(item), 3, dtype=dtype, rng=rng))
+            cin = width(item)
+        self.frontend = nn.ModuleList(convs)
+        backend = []
+        for c in self.BACKEND:
+            backend.append(Conv(cin, width(c), 3, dtype=dtype, rng=rng,
+                                dilation=2))
+            cin = width(c)
+        self.backend = nn.ModuleList(backend)
+        self.density_head = Conv(cin, 1, 1, dtype=dtype, rng=rng,
+                                 zero_init=zero_init_heads,
+                                 bias_value=density_head_bias)
+        self.count_head = Conv(cin, 1, 1, dtype=dtype, rng=rng,
+                               zero_init=zero_init_heads,
+                               bias_value=count_head_bias)
+
+    def forward(self, patches: torch.Tensor
+                ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        x = patches
+        for i, conv in enumerate(self.frontend):
+            x = F.relu(conv(x))
+            if i in self.pool_after:
+                x = F.max_pool2d(x, 2, 2)
+        for conv in self.backend:
+            x = F.relu(conv(x))
+        return _joint_heads(x, x, self.density_head, self.count_head)
+
+
 CROWD_MODELS = {
     "jointcnn": JointCNN,
     "jointdcnn": JointDCNN,
     "pyramid": SpatialPyramidCNN,
+    "csrnet": CSRNet,
 }
 
 

@@ -58,10 +58,13 @@ def lecun_normal_(tensor: torch.Tensor, fan_in: int,
                                      b=2 * std, generator=rng)
 
 
-def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
-    """flax/XLA ``SAME`` padding (low, high) of one spatial dim."""
+def same_padding(size: int, kernel: int, stride: int,
+                 dilation: int = 1) -> Tuple[int, int]:
+    """flax/XLA ``SAME`` padding (low, high) of one spatial dim, for the
+    effective kernel ``dilation·(kernel − 1) + 1``."""
     out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
+    span = dilation * (kernel - 1) + 1
+    total = max((out - 1) * stride + span - size, 0)
     return total // 2, total - total // 2
 
 
@@ -89,14 +92,14 @@ def _channels_last(t: torch.Tensor) -> torch.Tensor:
 
 
 def _conv_backward(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                   stride: int, padding: Tuple[int, int],
+                   stride: int, padding: Tuple[int, int], dilation: int,
                    mask: List[bool]):
     """(dx, dw, db) of ``conv2d(x, w, b)`` for the incoming ``dy``, those
     of ``mask`` only: the call autograd's ``ConvolutionBackward0`` makes,
     cuDNN's data- and weight-gradient kernels on the card."""
     return torch.ops.aten.convolution_backward.default(
-        dy, x, w, [w.shape[0]], [stride, stride], list(padding), [1, 1],
-        False, [0, 0], 1, mask)
+        dy, x, w, [w.shape[0]], [stride, stride], list(padding),
+        [dilation, dilation], False, [0, 0], 1, mask)
 
 
 class _ConvBwd(torch.autograd.Function):
@@ -104,11 +107,11 @@ class _ConvBwd(torch.autograd.Function):
     differentiable for the gradient penalty."""
 
     @staticmethod
-    def forward(ctx, dy, x, w, stride, padding, mask):
+    def forward(ctx, dy, x, w, stride, padding, dilation, mask):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(dy, x, w)
-        ctx.config = (stride, padding)
-        return _conv_backward(dy, x, w, stride, padding, mask)
+        ctx.config = (stride, padding, dilation)
+        return _conv_backward(dy, x, w, stride, padding, dilation, mask)
 
     @staticmethod
     def backward(ctx, g_dx, g_dw, g_db):
@@ -128,11 +131,14 @@ class _ConvBwd(torch.autograd.Function):
         cuDNN has only its legacy non-tensor-core kernels. Here every
         call is one that a first-order step makes, on ``channels_last``
         operands (each copy to it adds one to ``conv.layout_copies``).
+        Every call keeps the layer's stride, padding and dilation.
         Differentiable torch calls throughout, so a third order holds.
         """
         dy, x, w = ctx.saved_tensors
-        stride, padding = ctx.config
+        stride, padding, dilation = ctx.config
         conv.second_order += 1
+        if dilation > 1:
+            conv.dilated_second_order += 1
         want_dy, want_x, want_w = _engine_wants(ctx, 3)
         want_x = want_x and g_dw is not None
         want_w = want_w and g_dx is not None
@@ -143,21 +149,23 @@ class _ConvBwd(torch.autograd.Function):
         g_dy = g_x = g_w = None
         if want_dy:
             if g_dx is not None:
-                g_dy = F.conv2d(g_dx, w, stride=stride, padding=padding)
+                g_dy = F.conv2d(g_dx, w, stride=stride, padding=padding,
+                                dilation=dilation)
             if g_dw is not None:
-                term = F.conv2d(x, g_dw, stride=stride, padding=padding)
+                term = F.conv2d(x, g_dw, stride=stride, padding=padding,
+                                dilation=dilation)
                 g_dy = term if g_dy is None else g_dy + term
             if g_db is not None:
                 term = g_db.view(1, -1, 1, 1)
                 g_dy = (term.expand_as(dy) if g_dy is None
                         else g_dy + term)
         if want_x:
-            g_x = _conv_backward(dy, x, g_dw, stride, padding,
+            g_x = _conv_backward(dy, x, g_dw, stride, padding, dilation,
                                  [True, False, False])[0]
         if want_w:
-            g_w = _conv_backward(dy, g_dx, w, stride, padding,
+            g_w = _conv_backward(dy, g_dx, w, stride, padding, dilation,
                                  [False, True, False])[1]
-        return g_dy, g_x, g_w, None, None, None
+        return g_dy, g_x, g_w, None, None, None, None
 
 
 class _ConvFwd(torch.autograd.Function):
@@ -167,10 +175,11 @@ class _ConvFwd(torch.autograd.Function):
     made."""
 
     @staticmethod
-    def forward(ctx, x, w, b, stride, padding):
+    def forward(ctx, x, w, b, stride, padding, dilation):
         ctx.save_for_backward(x, w)
-        ctx.config = (stride, padding)
-        return F.conv2d(x, w, b, stride=stride, padding=padding)
+        ctx.config = (stride, padding, dilation)
+        return F.conv2d(x, w, b, stride=stride, padding=padding,
+                        dilation=dilation)
 
     @staticmethod
     def backward(ctx, dy):
@@ -181,35 +190,42 @@ class _ConvFwd(torch.autograd.Function):
                                         mask)
         else:
             dx, dw, db = _conv_backward(dy, x, w, *ctx.config, mask)
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None
 
 
 def conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-         stride: int, padding: Tuple[int, int]) -> torch.Tensor:
-    """``F.conv2d(x, weight, bias, stride, padding)`` with the second
-    order of :class:`_ConvBwd`. ``conv.second_order`` counts the runs of
-    that second order (the gradient penalty's, one a layer between the
-    interpolates and the features), ``conv.layout_copies`` the copies to
-    ``channels_last`` it made."""
+         stride: int, padding: Tuple[int, int],
+         dilation: int = 1) -> torch.Tensor:
+    """``F.conv2d(x, weight, bias, stride, padding, dilation)`` with the
+    second order of :class:`_ConvBwd`. ``conv.second_order`` counts the
+    runs of that second order (the gradient penalty's, one a layer
+    between the interpolates and the features), of which
+    ``conv.dilated_second_order`` those of a dilated layer;
+    ``conv.layout_copies`` counts the copies to ``channels_last`` it
+    made."""
     if not torch.is_grad_enabled():
-        return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+        return F.conv2d(x, weight, bias, stride=stride, padding=padding,
+                        dilation=dilation)
     return _ConvFwd.apply(_non_leaf(x), _non_leaf(weight),
-                          _non_leaf(bias), stride, padding)
+                          _non_leaf(bias), stride, padding, dilation)
 
 
 conv.second_order = 0
+conv.dilated_second_order = 0
 conv.layout_copies = 0
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with ``padding="SAME"``: weight [out, in, k, k]."""
+    """flax ``nn.Conv`` with ``padding="SAME"``: weight [out, in, k, k];
+    ``dilation`` spaces the kernel's taps (flax's ``kernel_dilation``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int = 1, *, dtype: torch.dtype,
                  rng: torch.Generator, zero_init: bool = False,
-                 bias_value: float = 0.0):
+                 bias_value: float = 0.0, dilation: int = 1):
         super().__init__()
         self.stride = stride
+        self.dilation = dilation
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.zeros(out_channels, in_channels, kernel, kernel))
@@ -222,7 +238,8 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.weight.shape[-1]
         (h_lo, h_hi), (w_lo, w_hi) = (
-            same_padding(size, k, self.stride) for size in x.shape[-2:])
+            same_padding(size, k, self.stride, self.dilation)
+            for size in x.shape[-2:])
         x = x.to(self.dtype)
         if (h_lo, w_lo) == (h_hi, w_hi):
             padding = (h_lo, w_lo)
@@ -230,7 +247,7 @@ class Conv(nn.Module):
             x = F.pad(x, (w_lo, w_hi, h_lo, h_hi))
             padding = (0, 0)
         return conv(x, self.weight.to(self.dtype), self.bias.to(self.dtype),
-                    self.stride, padding)
+                    self.stride, padding, self.dilation)
 
 
 class ConvTranspose(nn.Module):

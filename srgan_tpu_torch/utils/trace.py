@@ -189,5 +189,6 @@ def counters() -> Dict[str, int]:
         "TrainChunk.captures": TrainChunk.captures,
         "TrainChunk.replays": TrainChunk.replays,
         "conv.second_order": conv.second_order,
+        "conv.dilated_second_order": conv.dilated_second_order,
         "conv.layout_copies": conv.layout_copies,
     }

@@ -5,7 +5,8 @@
   the bias's, and those of the input side: a parameter before the
   convolution and the input) match autograd's own double backward of
   ``F.conv2d`` at rtol 1e-10, over the strides and paddings the models
-  use, a zero and a non-zero bias, ``channels_last`` and contiguous
+  use, dilation 1 and 2 (CSRNet's backend) at stride 1 and 2, a zero and
+  a non-zero bias, ``channels_last`` and contiguous
   inputs, and a penalty on the input's gradient, on the input's and the
   weight's, and on the bias's alone.
 * ``gradgradcheck`` holds the rule to finite differences.
@@ -14,6 +15,10 @@
   backward asks cuDNN only for the gradients the engine uses.
 * ``conv.second_order`` counts 4 a crowd SR-GAN step (the JointCNN
   trunk's four convolutions) and 0 a DNN-only step.
+* At dilation 1 the rule's calls are those it made before it took a
+  dilation: the first order is autograd's own ``convolution_backward``
+  call, and every call passes dilation [1, 1]; at dilation 2 every call
+  passes [2, 2].
 """
 
 import pytest
@@ -29,11 +34,13 @@ from srgan_tpu_torch.train import init_train_state
 from srgan_tpu_torch.utils import trace
 
 RTOL = 1e-10
-# (kernel, stride, input side): stride 1 with (1, 1) padding; the
-# JointCNN's stride-2 3×3 on an even map, SAME's (0, 1) by F.pad; the
-# ConvRegressor's 4×4 stride 2.
-GEOMETRIES = {"k3s1": (3, 1, 9), "k3s2_pad01": (3, 2, 10),
-              "k4s2": (4, 2, 10)}
+# (kernel, stride, input side, dilation): stride 1 with (1, 1) padding;
+# the JointCNN's stride-2 3×3 on an even map, SAME's (0, 1) by F.pad; the
+# ConvRegressor's 4×4 stride 2; CSRNet's dilated 3×3 at stride 1 (SAME's
+# (2, 2)) and a dilated 3×3 at stride 2 (SAME's (1, 2) by F.pad).
+GEOMETRIES = {"k3s1": (3, 1, 9, 1), "k3s2_pad01": (3, 2, 10, 1),
+              "k4s2": (4, 2, 10, 1), "k3s1_d2": (3, 1, 9, 2),
+              "k3s2_d2": (3, 2, 10, 2)}
 # The gradients the penalty is taken of: the input's (the SR-GAN's), also
 # the weight's (so the second order's dw cotangent is defined), and the
 # bias's alone (only its db cotangent).
@@ -55,21 +62,22 @@ CROWD = dict(batch_size=2, labeled_dataset_size=4, unlabeled_dataset_size=4,
 def _native_conv(m: Conv, x):
     """``Conv.forward`` with autograd's own ``F.conv2d``."""
     k = m.weight.shape[-1]
-    (h_lo, h_hi), (w_lo, w_hi) = (same_padding(s, k, m.stride)
+    (h_lo, h_hi), (w_lo, w_hi) = (same_padding(s, k, m.stride, m.dilation)
                                   for s in x.shape[-2:])
     if (h_lo, w_lo) == (h_hi, w_hi):
         return F.conv2d(x, m.weight, m.bias, stride=m.stride,
-                        padding=(h_lo, w_lo))
+                        padding=(h_lo, w_lo), dilation=m.dilation)
     return F.conv2d(F.pad(x, (w_lo, w_hi, h_lo, h_hi)), m.weight, m.bias,
-                    stride=m.stride)
+                    stride=m.stride, dilation=m.dilation)
 
 
 @pytest.mark.parametrize("geometry,bias,layout,penalty", CASES)
 def test_penalty_gradients_match_autograds_double_backward(
         geometry, bias, layout, penalty):
-    kernel, stride, side = GEOMETRIES[geometry]
+    kernel, stride, side, dilation = GEOMETRIES[geometry]
     gen = torch.Generator().manual_seed(7)
-    m = Conv(3, 5, kernel, stride, dtype=torch.float64, rng=gen).double()
+    m = Conv(3, 5, kernel, stride, dtype=torch.float64, rng=gen,
+             dilation=dilation).double()
     if bias == "nonzero":
         with torch.no_grad():
             m.bias.normal_(generator=gen)
@@ -93,9 +101,10 @@ def test_penalty_gradients_match_autograds_double_backward(
         gp = sum(g.square().sum() for g in grads)
         return torch.autograd.grad(gp, [m.weight, m.bias, scale, x0])
 
-    before = conv.second_order
+    before = conv.second_order, conv.dilated_second_order
     got = penalty_grads(Conv.forward)
-    assert conv.second_order == before + 1
+    assert (conv.second_order, conv.dilated_second_order) == (
+        before[0] + 1, before[1] + (dilation > 1))
     want = penalty_grads(_native_conv)
     for name, g, w in zip(["weight", "bias", "scale", "input"], got, want):
         torch.testing.assert_close(g, w, rtol=RTOL,
@@ -105,9 +114,10 @@ def test_penalty_gradients_match_autograds_double_backward(
 
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
 def test_second_order_passes_gradgradcheck(geometry):
-    kernel, stride, _ = GEOMETRIES[geometry]
+    kernel, stride, _, dilation = GEOMETRIES[geometry]
     gen = torch.Generator().manual_seed(3)
-    m = Conv(2, 3, kernel, stride, dtype=torch.float64, rng=gen).double()
+    m = Conv(2, 3, kernel, stride, dtype=torch.float64, rng=gen,
+             dilation=dilation).double()
     x = torch.randn(1, 2, 6, 6, dtype=torch.float64, generator=gen,
                     requires_grad=True)
     w = m.weight.detach().clone().requires_grad_(True)
@@ -207,3 +217,40 @@ def test_a_dnn_only_step_runs_no_second_order(tmp_path):
     before = trace.counters()["conv.second_order"]
     exp.state, _ = exp._step(*batch)
     assert trace.counters()["conv.second_order"] == before
+
+
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_every_call_keeps_the_layers_dilation(dilation):
+    """A penalty through one layer: the first order makes the call that
+    autograd's own ``ConvolutionBackward0`` makes for ``F.conv2d`` (the
+    same arguments but for the mask, which the rule narrows to what the
+    engine uses), and every convolution of the first and second order
+    passes the layer's dilation; at dilation 1, [1, 1] as before."""
+    gen = torch.Generator().manual_seed(11)
+    m = Conv(3, 4, 3, 1, dtype=torch.float64, rng=gen,
+             dilation=dilation).double()
+    x = torch.randn(2, 3, 9, 9, dtype=torch.float64, generator=gen,
+                    requires_grad=True)
+
+    def first_order(layer):
+        log = _ConvLog()
+        with log:
+            out = torch.tanh(layer(m, x)).square().sum()
+            (g,) = torch.autograd.grad(out, x, create_graph=True)
+        return log, g
+
+    ours, g = first_order(Conv.forward)
+    native, _ = first_order(_native_conv)
+    key = lambda args: [tuple(a.shape) if torch.is_tensor(a) else a  # noqa
+                        for a in args[:-1]]
+    ours_bwd = ours.of(torch.ops.aten.convolution_backward.default)
+    assert [key(a) for a in ours_bwd] == [
+        key(a) for a in native.of(torch.ops.aten.convolution_backward.default)]
+    log = _ConvLog()
+    with log:
+        torch.autograd.grad(g.square().sum(), [m.weight, m.bias])
+    calls = ours.calls + log.calls
+    assert log.of(torch.ops.aten.convolution_backward.default)
+    for func, args in calls:
+        at = 5 if func is torch.ops.aten.convolution.default else 6
+        assert list(args[at]) == [dilation, dilation], (func, args[at])

@@ -377,6 +377,12 @@ TRUNK_CONVS = [((8, 3, 225, 225), 64, 2, (0, 0)),
                ((8, 256, 56, 56), 256, 1, (1, 1))]
 
 
+# CSRNet's backend at batch 8: 3×3 convolutions of dilation 2 on 28²
+# maps at the flagship's patch, SAME's (2, 2) padding.
+DILATED_CONVS = [((8, 512, 28, 28), 512), ((8, 512, 28, 28), 256),
+                 ((8, 256, 28, 28), 128), ((8, 128, 28, 28), 64)]
+
+
 @pytest.mark.parametrize("shape,out,stride,padding", TRUNK_CONVS)
 def test_conv_second_order_takes_tensor_core_weight_gradients(
         shape, out, stride, padding):
@@ -385,10 +391,21 @@ def test_conv_second_order_takes_tensor_core_weight_gradients(
     ``convolution_backward``: the weight's gradient and dy's within
     bf16 rounding, dy's channels_last, and no legacy
     ``implicit_convolve_sgemm`` kernel in the rule."""
+    _check_conv_second_order(shape, out, stride, padding, 1)
+
+
+@pytest.mark.parametrize("shape,out", DILATED_CONVS)
+def test_dilated_conv_second_order_takes_tensor_core_weight_gradients(
+        shape, out):
+    """The same of CSRNet's dilated backend layers."""
+    _check_conv_second_order(shape, out, 1, (2, 2), 2)
+
+
+def _check_conv_second_order(shape, out, stride, padding, dilation):
     from srgan_tpu_torch.models.dcgan import _ConvBwd
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    side = (shape[2] + 2 * padding[0] - 3) // stride + 1
+    side = (shape[2] + 2 * padding[0] - 2 * dilation - 1) // stride + 1
 
     def bf16(*s, scale=1.0):
         t = torch.randn(s, generator=gen, device=dev) * scale
@@ -402,15 +419,15 @@ def test_conv_second_order_takes_tensor_core_weight_gradients(
     g_dx = bf16(*shape)
     mask = [True, False, False]
     dx = _ConvBwd.apply(dy.view_as(dy), x, w.view_as(w), stride, padding,
-                        mask)[0]
+                        dilation, mask)[0]
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         got_dy, got_w = torch.autograd.grad(dx, (dy, w), g_dx)
         torch.cuda.synchronize()
     native = torch.ops.aten.convolution_backward(
-        dy, x, w, [out], [stride, stride], list(padding), [1, 1], False,
-        [0, 0], 1, mask)[0]
+        dy, x, w, [out], [stride, stride], list(padding),
+        [dilation, dilation], False, [0, 0], 1, mask)[0]
     want_dy, want_w = torch.autograd.grad(native, (dy, w), g_dx)
     for got, want in ((got_w, want_w), (got_dy, want_dy)):
         scale = want.float().abs().max().item()

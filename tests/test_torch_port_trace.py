@@ -322,6 +322,7 @@ def test_counters_read_the_attributes_they_name(monkeypatch):
              "TrainChunk.captures": (TrainChunk, "captures"),
              "TrainChunk.replays": (TrainChunk, "replays"),
              "conv.second_order": (conv, "second_order"),
+             "conv.dilated_second_order": (conv, "dilated_second_order"),
              "conv.layout_copies": (conv, "layout_copies")}
     for i, (owner, attr) in enumerate(where.values()):
         monkeypatch.setattr(owner, attr, 1000 + i)
