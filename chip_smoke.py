@@ -29,7 +29,11 @@ Phases, each of which fails the run if it fails:
              backward that streams rows), in bfloat16 (tolerances at
              ``check_norm_kernels``), each shape's tiling and its
              clusters on the card at once printed, the times weighted by
-             each shape's launches in each step; the density kernel
+             each shape's launches in each step; the norm's second-order
+             kernel against its closed form at D's norms at the
+             flagship's interpolates, bfloat16 (tolerances at
+             ``check_second_order_kernel``), beside the composite it
+             replaced; the density kernel
              against its plain version at 16 maps of 4096 slots, at the
              preprocessing path's one map (phase 7's most crowded image)
              and at one map of 12 865 heads (384×512, σ = 8; tolerance at
@@ -61,7 +65,8 @@ Phases, each of which fails the run if it fails:
              for D and the DNN, the sample and triptych PNGs written, and
              each kernel launched the number of times that the step's and
              the validation pass's structure give
-             (``NORM_LAUNCHES_PER_STEP``, ``LAUNCHES_PER_VALIDATION``);
+             (``NORM_LAUNCHES_PER_STEP``: 30 forward, 25 backward and 4
+             second-order norm launches a step; ``LAUNCHES_PER_VALIDATION``);
 6. time    — 20 more steps of each between ``torch.cuda.synchronize()``
              calls: ms/step, images/s and the peak of allocated device
              memory; 3 more under ``torch.profiler``: the card's busy
@@ -124,8 +129,9 @@ Phases, each of which fails the run if it fails:
              cyclic-pad duplicate drawn; then ``DP_WINDOW`` at the
              flagship widths (batch 120, 60 a rank) with the database and
              a window sharded and rescale on, 4 steps. Every rank's
-             launches asserted (3 sampler and 30/25 norm launches a step,
-             a validation pass's as in phase 5), rank 0 alone writing;
+             launches asserted (3 sampler and 30/25/4 norm launches a
+             step, a validation pass's as in phase 5), rank 0 alone
+             writing;
              per rank the ms/step, the peak allocated memory and the
              gradient all-reduce's host ms a step;
 14. dispatch — ``steps_per_dispatch`` (K steps a CUDA graph replay): (a)
@@ -167,8 +173,8 @@ Phases, each of which fails the run if it fails:
              "pallas" at batch 8 (cut from 120 so that gloo's
              host-staged collectives fit the time), 4 steps and a
              validation pass through ``train()``, a rank's launches (3
-             sampler, 30/25 norm a step) and the shapes its norm kernels
-             ran at asserted; per rank the ms/step, the peak allocated
+             sampler, 30/25/4 norm a step) and the shapes its norm
+             kernels ran at asserted; per rank the ms/step, the peak allocated
              memory and the host ms of the model-axis collectives a step;
 16. tools  — the port's tools (``srgan_tpu_torch/tools/``): (a) the four
              golden traces' configurations recorded on the CPU and
@@ -179,7 +185,7 @@ Phases, each of which fails the run if it fails:
              ("pallas") on a 2 GB memmap database with a window of 256
              in 4 slices refreshed every 2 steps, 20 timed steps: its
              refreshes, rotation and buffers checked as phase 12 checks
-             them, 3 sampler and 30/25 norm launches a step asserted;
+             them, 3 sampler and 30/25/4 norm launches a step asserted;
              (d) the command-line rehearsal (preprocessing and training
              command lines as subprocesses) at 4 images of 3000×4000, a
              window of 64 and 4 steps, its metrics finite; (e) the
@@ -271,11 +277,18 @@ NORM_SHAPES = [(360, 112 * 112, 64, 0.2, 1, 1), (360, 56 * 56, 128, 0.2, 1, 1),
                (120, 7 * 7, 1024, 0.0, 2, 1), (120, 14 * 14, 512, 0.0, 2, 1),
                (120, 28 * 28, 256, 0.0, 2, 1), (120, 56 * 56, 128, 0.0, 2, 1),
                (120, 112 * 112, 64, 0.0, 2, 1)]
-NORM_LAUNCHES_PER_STEP = {"fwd": 30, "bwd": 25}
-if {kind: sum(shape[4 + i] for shape in NORM_SHAPES)
-        for i, kind in enumerate(("fwd", "bwd"))} != NORM_LAUNCHES_PER_STEP:
-    raise AssertionError("NORM_SHAPES' launches do not sum to "
-                         "NORM_LAUNCHES_PER_STEP")
+# D's norms at the interpolates, whose backward the gradient penalty
+# differentiates once more (the second-order kernel), as (B, H·W, C,
+# launches a step).
+SECOND_ORDER_SHAPES = [(120, 112 * 112, 64, 1), (120, 56 * 56, 128, 1),
+                       (120, 56 * 56, 256, 2)]
+NORM_LAUNCHES_PER_STEP = {"fwd": 30, "bwd": 25, "second_order": 4}
+if dict({kind: sum(shape[4 + i] for shape in NORM_SHAPES)
+         for i, kind in enumerate(("fwd", "bwd"))},
+        second_order=sum(shape[3] for shape in SECOND_ORDER_SHAPES)
+        ) != NORM_LAUNCHES_PER_STEP:
+    raise AssertionError("NORM_SHAPES' and SECOND_ORDER_SHAPES' launches do "
+                         "not sum to NORM_LAUNCHES_PER_STEP")
 # Every GroupNorm of the age (and driving) SR-GAN step at full width
 # (64-px images, batch 32, base width 64; the D stages 32²×64, 16²×128,
 # 8²×256 and 4²×512, slope 0.2; G 4²×512 up to 32²×64, ReLU), in
@@ -294,15 +307,17 @@ AGE_NORM_SHAPES = (
 
 
 def norm_launches_per_step(norms: int, dnn_only: bool = False):
-    """(forward, backward) fused-norm launches of one step of a model set
-    with ``norms`` norms in each of D, G and the DNN: the SR-GAN step
-    runs 7 model forwards and 6 model backwards (above), the DNN-only
-    step one of each through the DNN."""
-    return (norms, norms) if dnn_only else (7 * norms, 6 * norms)
+    """(forward, backward, second-order) fused-norm launches of one step
+    of a model set with ``norms`` norms in each of D, G and the DNN: the
+    SR-GAN step runs 7 model forwards and 6 model backwards (above), and
+    the penalty differentiates D's backward at the interpolates once
+    more; the DNN-only step one forward and one backward through the
+    DNN."""
+    return (norms, norms, 0) if dnn_only else (7 * norms, 6 * norms, norms)
 
 
 if tuple(sum(shape[4 + i] for shape in AGE_NORM_SHAPES)
-         for i in range(2)) != norm_launches_per_step(4):
+         for i in range(2)) != norm_launches_per_step(4)[:2]:
     raise AssertionError("AGE_NORM_SHAPES' launches do not sum to 28 and 24")
 # JointDCNN's 512-channel last stage (56²×512, slope 0.2) in the flagship
 # step, in NORM_SHAPES' form: once each way over the 3B batch, 4 times
@@ -318,19 +333,22 @@ DCNN_NORM_SHAPES = [(360, 56 * 56, 512, 0.2, 1, 1),
 # patches (384×512 images, 224-px patches, stride 112: 3 rows × 4 columns)
 # and one forward (4 norms):
 #   extract_patches: 2 models × 2 chunks = 4;
-#   norm forward:    G 5 + 2 models × 2 chunks × 4 = 21; backward 0.
+#   norm forward:    G 5 + 2 models × 2 chunks × 4 = 21; backward and
+#   second order 0.
 LAUNCHES_PER_VALIDATION = {"extract_patches": 4, "group_norm_act_fwd": 21,
                            "group_norm_act_bwd": 0,
+                           "group_norm_act_second_order": 0,
                            "extract_rescaled_patches": 0}
 
 
 def crowd_norm_launches(d_norms: int, g_norms: int = 5):
-    """(forward, backward) fused-norm launches of one crowd SR-GAN step
-    whose D and DNN have ``d_norms`` norms and G ``g_norms``: D runs 4
-    forwards (3B, interpolates, unlabeled, fake) and 4 backwards (3B,
-    interpolates twice, fake), the DNN one of each, G 2 forwards and one
-    backward."""
-    return 5 * d_norms + 2 * g_norms, 5 * d_norms + g_norms
+    """(forward, backward, second-order) fused-norm launches of one crowd
+    SR-GAN step whose D and DNN have ``d_norms`` norms and G ``g_norms``:
+    D runs 4 forwards (3B, interpolates, unlabeled, fake) and 4 backwards
+    (3B, interpolates twice, fake), the DNN one of each, G 2 forwards and
+    one backward; the penalty's outer gradient differentiates D's first
+    backward at the interpolates once more."""
+    return 5 * d_norms + 2 * g_norms, 5 * d_norms + g_norms, d_norms
 
 
 def crowd_launches_per_validation(d_norms: int):
@@ -792,9 +810,10 @@ def check_norm_kernels(dev):
     """Phase 2, fused norm: the forward and backward kernels against their
     plain versions at every norm shape of the flagship step
     (``NORM_SHAPES``) and of the age SR-GAN step (``AGE_NORM_SHAPES``),
-    bfloat16. Returns the two kernel table entries (launches filled in by
-    the training phase); their ``ms`` are at the flagship's first, largest
-    shape; ``step_ms`` / ``step_bound_ms`` and ``age_step_ms`` /
+    bfloat16, then the second-order kernel (``check_second_order_kernel``).
+    Returns the three kernel table entries (launches filled in by the
+    training phase); the first two's ``ms`` are at the flagship's first,
+    largest shape; ``step_ms`` / ``step_bound_ms`` and ``age_step_ms`` /
     ``age_step_bound_ms`` are the launch-weighted sums over each step's
     shapes of the kernel's time and of its bound. The age shapes are
     timed queued (``cuda_ms``): their calls are shorter on the card than
@@ -832,7 +851,7 @@ def check_norm_kernels(dev):
                                   "JointDCNN's 512-channel stage", worst)
     log("kernel group_norm_act: mean/rstd within rtol 1e-5, dscale/dbias "
         "within 1e-4 of their largest, at every shape")
-    return [{"name": f"group_norm_act_{kind}", "route": "cuda",
+    return [*({"name": f"group_norm_act_{kind}", "route": "cuda",
              "source": "srgan_tpu_torch/csrc/fused_norm.cu",
              "replaces": f"srgan_tpu/ops/fused_norm.py:{line}",
              "launches": None, "max_abs_err": worst[kind],
@@ -847,7 +866,140 @@ def check_norm_kernels(dev):
              "dcnn_stage_ms": dcnn[kind]["ms"],
              "dcnn_stage_bound_ms": dcnn[kind]["bound_ms"],
              "dcnn_stage_traffic_bound_ms": dcnn[kind]["traffic_bound_ms"]}
-            for kind, line in (("fwd", 178), ("bwd", 226))]
+            for kind, line in (("fwd", 178), ("bwd", 226))),
+            check_second_order_kernel(dev, gen)]
+
+
+def _composite_second_order(x, scale, bias, dy, cotangents, groups, slope,
+                            eps=1e-6):
+    """``torch.func.vjp`` of the plain backward map, mean and rstd
+    recomputed from x: the composite float32 second order that the
+    second-order kernel replaced on the card."""
+    from srgan_tpu_torch.ops import fused_norm as fn
+
+    def whole(x, scale, bias, dy):
+        mean, rstd = fn._group_stats(x, groups, eps)
+        return fn.group_norm_act_bwd_plain(x, scale, bias, mean, rstd, dy,
+                                           groups, slope)
+
+    _, vjp = torch.func.vjp(whole, x, scale, bias, dy)
+    return vjp(cotangents)
+
+
+def check_second_order_kernel(dev, gen):
+    """Phase 2, the fused norm's second order: the kernel
+    (``_launch_second_order``) against its closed form
+    (``group_norm_act_bwd_vjp_plain``) at D's norms at the flagship's
+    interpolates (``SECOND_ORDER_SHAPES``), bfloat16, 32 groups, slope
+    0.2, mean and rstd the forward kernel's, every cotangent drawn
+    nonzero. Each shape timed beside the closed form and its bound (x, dy
+    and g_dx read once, g_x and g_dy written once: 10 B an element), and
+    the first, largest, beside the composite it replaced
+    (``_composite_second_order``). Returns the kernel table entry
+    (launches filled in by the training phase; ``step_ms`` /
+    ``step_bound_ms`` the launch-weighted sums over the shapes).
+
+    Tolerances, the card test's (``tests/test_torch_port_cuda.py``
+    ``_second_order_within``): g_x and g_dy within one bfloat16 ulp of
+    each element plus 1e-5 of the tensor's largest magnitude, g_scale
+    within 1e-5 of its largest, g_bias exactly 0."""
+    from srgan_tpu_torch.ops import fused_norm as fn
+    groups, slope = 32, 0.2
+    worst = 0.0
+    step = {"ms": 0.0, "bound_ms": 0.0, "traffic_bound_ms": 0.0}
+    first = None
+    for b, hw, c, per_step in SECOND_ORDER_SHAPES:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        x = (randn(b, hw, c) + 0.5).to(torch.bfloat16)
+        dy = randn(b, hw, c).to(torch.bfloat16)
+        g_dx = randn(b, hw, c).to(torch.bfloat16)
+        scale = 1.0 + 0.1 * randn(c)
+        bias = 0.1 * randn(c)
+        g_dscale, g_dbias = randn(c), randn(c)
+        _, mean, rstd = fn._launch_fwd(x, scale, bias, groups, slope, 1e-6)
+        args = (x, scale, bias, mean, rstd, dy, g_dx, g_dscale, g_dbias,
+                groups, slope)
+        before = fn._launch_second_order.launches
+        got = fn._launch_second_order(*args)
+        torch.cuda.synchronize()
+        if fn._launch_second_order.launches != before + 1:
+            raise AssertionError("the second-order launcher did not count "
+                                 "its launch")
+        want = fn.group_norm_act_bwd_vjp_plain(*args)
+        shape = f"[{b}, {hw}, {c}] bf16 slope {slope}"
+        err = 0.0
+        for name, g, w in (("g_x", got[0], want[0]),
+                           ("g_dy", got[3], want[3])):
+            if g.dtype != torch.bfloat16 or g.shape != x.shape:
+                raise AssertionError(f"second-order kernel returned {name} "
+                                     f"{g.dtype} {list(g.shape)}")
+            w = w.float()
+            err = max(err, _assert_within(
+                f"{name} {shape}", g, w,
+                2 ** -7 * w.abs() + 1e-5 * float(w.abs().max())))
+        worst = max(worst, err)
+        _assert_within(f"g_scale {shape}", got[1], want[1],
+                       1e-5 * float(want[1].abs().max()))
+        if got[2].any():
+            raise AssertionError(f"g_bias {shape} is not 0")
+        del got, want
+        t_kernel, t_plain = paired_ms(
+            lambda: fn.group_norm_act_bwd_vjp_plain(*args),
+            lambda: fn._launch_second_order(*args), 10)
+        xb = x.numel() * x.element_size()
+        # Least bytes: x, dy and g_dx read once, g_x and g_dy written once,
+        # the float32 vectors (scale, bias, g_dscale, g_dbias, g_scale,
+        # g_bias; mean and rstd); operations about 40 an element.
+        vectors = 4 * (6 * c + 2 * b * groups)
+        ops = 40 * x.numel()
+        bound = least_ms(5 * xb + vectors, ops)
+        tiling = fn.norm_tiling(b, hw, c, x.dtype, "second_order")
+        moved = fn.norm_traffic_bytes(b, hw, c, x.dtype, "second_order",
+                                      tiling)
+        traffic_bound = least_ms(moved + vectors, ops)[0]
+        composite = ""
+        if first is None:
+            t_composite = cuda_ms(lambda: _composite_second_order(
+                x, scale, bias, dy, (g_dx, g_dscale, g_dbias), groups,
+                slope), 3)
+            composite = f", the composite it replaced {t_composite:.4f} ms"
+            first = {"ms": t_kernel, "plain_ms": t_plain, "bound": bound,
+                     "composite_ms": t_composite}
+        log(f"kernel group_norm_act second order {shape}: max|err| "
+            f"{err:g}, kernel {t_kernel:.4f} ms "
+            f"({moved / t_kernel / 1e6:.1f} GB/s of {moved / xb:g} units "
+            f"moved), closed form {t_plain:.4f} ms{composite}, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}; with the streamed rows read "
+            f"again {traffic_bound:.4f} ms); tiling cluster "
+            f"{tiling.cluster}, {tiling.rows_per_block} rows a block, "
+            f"{tiling.resident_rows} resident, {tiling.smem_bytes} B shared "
+            f"memory, max active clusters "
+            f"{fn.max_active_clusters(x.dtype, 'second_order', tiling)}; "
+            f"{per_step} launches a step")
+        step["ms"] += per_step * t_kernel
+        step["bound_ms"] += per_step * bound[0]
+        step["traffic_bound_ms"] += per_step * traffic_bound
+        del x, dy, g_dx, args
+        torch.cuda.empty_cache()
+    count = sum(shape[3] for shape in SECOND_ORDER_SHAPES)
+    log(f"kernel group_norm_act second order, the flagship step's {count} "
+        f"launches: {step['ms']:.4f} ms a step, bound "
+        f"{step['bound_ms']:.4f} ms, {100 * step['bound_ms'] / step['ms']:.1f}"
+        f"% of the bound (with the streamed rows read again "
+        f"{step['traffic_bound_ms']:.4f} ms)")
+    return {"name": "group_norm_act_second_order", "route": "cuda",
+            "source": "srgan_tpu_torch/csrc/fused_norm.cu",
+            # No TPU kernel: JAX differentiates its plain backward by the
+            # custom_jvp rule bwd_op_jvp.
+            "replaces": "srgan_tpu/ops/fused_norm.py:425",
+            "launches": None, "max_abs_err": worst, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound"][0],
+            "bound_by": first["bound"][1],
+            # No single PyTorch call differentiates a GroupNorm's backward.
+            "library_ms": None, "composite_ms": first["composite_ms"],
+            "step_ms": step["ms"], "step_bound_ms": step["bound_ms"],
+            "step_traffic_bound_ms": step["traffic_bound_ms"]}
 
 
 def library_norm_ms(x, scale, bias, dy):
@@ -1035,7 +1187,7 @@ def check_second_order(dev):
     """Phase 3: ∂/∂scale of mean((‖∂/∂x Σ y²‖ − 1)²), the derivative the
     gradient penalty takes through the norm (tests/test_fused_norm.py), in
     float32 at a D-like shape: the kernel path (forward kernel, backward
-    kernel, composite second order) against autograd through the plain
+    kernel, second-order kernel) against autograd through the plain
     forward. Value at rtol 1e-4, gradient at rtol 1e-3 and atol 1e-6."""
     from srgan_tpu_torch.ops import fused_norm as fn
     b, c, h, slope = 8, 128, 56, 0.2
@@ -1064,14 +1216,14 @@ def check_second_order(dev):
         (grad,) = torch.autograd.grad(value, s)
         return float(value.detach()), grad
 
-    before = (fn._launch_fwd.launches, fn._launch_bwd.launches)
+    counters = (fn._launch_fwd, fn._launch_bwd, fn._launch_second_order)
+    before = [c.launches for c in counters]
     got_v, got_g = penalty(kernel)
-    launched = (fn._launch_fwd.launches - before[0],
-                fn._launch_bwd.launches - before[1])
+    launched = tuple(c.launches - n for c, n in zip(counters, before))
     want_v, want_g = penalty(plain)
-    if launched[0] < 1 or launched[1] < 2:
+    if launched[0] < 1 or launched[1] < 2 or launched[2] != 1:
         raise AssertionError(f"second order: kernels launched {launched} "
-                             f"(forward, backward) times")
+                             f"(forward, backward, second order) times")
     if not math.isclose(got_v, want_v, rel_tol=1e-4):
         raise AssertionError(f"second order: penalty {got_v} vs {want_v}")
     torch.testing.assert_close(got_g, want_g, rtol=1e-3, atol=1e-6)
@@ -1079,7 +1231,7 @@ def check_second_order(dev):
         f"(plain {want_v:.7g}), ∂/∂scale max|err| "
         f"{float((got_g - want_g).abs().max()):g} of "
         f"{float(want_g.abs().max()):g}; kernel launches (forward, "
-        f"backward) {launched}")
+        f"backward, second order) {launched}")
 
 
 def check_small_step(dev, norm_impl, factors=(), **over):
@@ -1184,8 +1336,9 @@ def check_small_app_step(dev, app, norm_impl="xla", dnn_only=False):
     predictions rtol 1e-4 plus 1e-3 of the largest, the crowd grid
     evaluation's bound (the tiny one-channel GroupNorms amplify the two
     devices' sum orders). Under "pallas" the card's norm launches are
-    counted: 3 norms a model at 32 px (``norm_launches_per_step``), and
-    3 forwards for each of the 2 prediction chunks."""
+    counted: 3 norms a model at 32 px (``norm_launches_per_step``: forward,
+    backward and second order), and 3 forwards for each of the 2
+    prediction chunks."""
     from srgan_tpu_torch import Settings
     from srgan_tpu_torch.ops import fused_norm as fn
     from srgan_tpu_torch.train import init_train_state, set_float32_precision
@@ -1197,7 +1350,8 @@ def check_small_app_step(dev, app, norm_impl="xla", dnn_only=False):
                  alpha=rng.uniform(0, 1, b))
     results = []
     for device in ("cpu", dev):
-        before = (fn._launch_fwd.launches, fn._launch_bwd.launches)
+        counters = (fn._launch_fwd, fn._launch_bwd, fn._launch_second_order)
+        before = [c.launches for c in counters]
         exp = _app_class(app)(settings, device=device)
         exp.dataset_setup()
         exp.models = exp.model_setup()
@@ -1211,8 +1365,7 @@ def check_small_app_step(dev, app, norm_impl="xla", dnn_only=False):
                    for k, v in draws.items()}
             _, metrics = exp._train_step(exp.state, *batch, None, **fed)
         preds = exp.predict(exp.validation_dataset)
-        launches = (fn._launch_fwd.launches - before[0],
-                    fn._launch_bwd.launches - before[1])
+        launches = tuple(c.launches - n for c, n in zip(counters, before))
         results.append(({k: float(v) for k, v in metrics.items()}, preds,
                          launches))
     (cpu_metrics, cpu_preds, _), (gpu_metrics, gpu_preds, launches) = results
@@ -1227,14 +1380,15 @@ def check_small_app_step(dev, app, norm_impl="xla", dnn_only=False):
         gpu_preds, cpu_preds, rtol=1e-4,
         atol=1e-3 * float(np.abs(cpu_preds).max()),
         err_msg=f"{what}: validation predictions")
-    want = (0, 0)
+    want = (0, 0, 0)
     if norm_impl == "pallas" and app != "coefficient":
         step = norm_launches_per_step(3, dnn_only)
         chunks = -(-settings.validation_dataset_size // b)
-        want = (step[0] + 3 * chunks, step[1])
+        want = (step[0] + 3 * chunks, *step[1:])
     if launches != want:
-        raise AssertionError(f"{what}: (norm forward, backward) kernels "
-                             f"launched {launches} times, not {want}")
+        raise AssertionError(f"{what}: (norm forward, backward, second "
+                             f"order) kernels launched {launches} times, "
+                             f"not {want}")
     log(f"{what}, fp32, card vs CPU (norm launches on the card {launches}): "
         f"validation predictions max|err| "
         f"{float(np.abs(gpu_preds - cpu_preds).max()):g} of "
@@ -1331,7 +1485,8 @@ def train_main_path(settings, dev, card: str) -> tuple:
     counters = {"extract_patches": extract_patches,
                 "extract_rescaled_patches": extract_rescaled_patches,
                 "group_norm_act_fwd": fn._launch_fwd,
-                "group_norm_act_bwd": fn._launch_bwd}
+                "group_norm_act_bwd": fn._launch_bwd,
+                "group_norm_act_second_order": fn._launch_second_order}
     for counter in counters.values():
         counter.launches = 0
     fn.group_norm_act.layout_copies = 0
@@ -1414,7 +1569,8 @@ def app_train_main_path(app, settings, dev, card: str) -> dict:
     (unless ``dnn_only``) and the DNN, the G sample PNGs written (image
     apps, unless ``dnn_only``), and under "pallas" the fused norm
     launched ``norm_launches_per_step(4)`` times a step (4 norms in each
-    of D, G and the DNN at 64 px) and 4 forwards per model and
+    of D, G and the DNN at 64 px; forward, backward and second order) and
+    4 forwards per model and
     ``batch_size`` chunk of each validation pass, plus G's 4 for the
     samples. Then ``TIMED_STEPS`` more steps of the same experiment
     between synchronizations: ms/step, examples/s and the peak of
@@ -1433,7 +1589,8 @@ def app_train_main_path(app, settings, dev, card: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     counters = {"group_norm_act_fwd": fn._launch_fwd,
-                "group_norm_act_bwd": fn._launch_bwd}
+                "group_norm_act_bwd": fn._launch_bwd,
+                "group_norm_act_second_order": fn._launch_second_order}
     for counter in counters.values():
         counter.launches = 0
     t0 = time.perf_counter()
@@ -1454,7 +1611,8 @@ def app_train_main_path(app, settings, dev, card: str) -> dict:
         per_step = norm_launches_per_step(4, settings.dnn_only)
         want = {"group_norm_act_fwd": per_step[0] * steps
                 + per_validation * validations,
-                "group_norm_act_bwd": per_step[1] * steps}
+                "group_norm_act_bwd": per_step[1] * steps,
+                "group_norm_act_second_order": per_step[2] * steps}
     else:
         want = {name: 0 for name in counters}
     if launches != want:
@@ -1731,6 +1889,7 @@ def cli_main_path(dev, db_dir: str, logs: str) -> dict:
                 "extract_rescaled_patches": extract_rescaled_patches,
                 "group_norm_act_fwd": fn._launch_fwd,
                 "group_norm_act_bwd": fn._launch_bwd,
+                "group_norm_act_second_order": fn._launch_second_order,
                 "density_maps": density_maps}
     for counter in counters.values():
         counter.launches = 0
@@ -1747,7 +1906,8 @@ def cli_main_path(dev, db_dir: str, logs: str) -> dict:
         f"included), checkpoints step_2 and step_4; kernel launches "
         f"{json.dumps(launches)}; {json.dumps(first)}")
     if (min(launches[k] for k in ("extract_patches", "group_norm_act_fwd",
-                                  "group_norm_act_bwd")) < 1
+                                  "group_norm_act_bwd",
+                                  "group_norm_act_second_order")) < 1
             or launches["density_maps"]
             or launches["extract_rescaled_patches"]):
         raise AssertionError(f"cli train launched {launches}")
@@ -1859,10 +2019,12 @@ def age_cli_main_path(dev, logs: str) -> None:
                  trial_name="chip_smoke_age_cli", summary_step_period=1,
                  seed=0, **APP_CLI_MODEL)
     base = ["age"] + [f"--{k}={v}" for k, v in flags.items()]
-    fn._launch_fwd.launches = fn._launch_bwd.launches = 0
+    counters = (fn._launch_fwd, fn._launch_bwd, fn._launch_second_order)
+    for counter in counters:
+        counter.launches = 0
     first = _cli(base + ["--steps_to_run", "4", "--save_step_period", "2",
                          "--validation_step_period", "4"])
-    launches = (fn._launch_fwd.launches, fn._launch_bwd.launches)
+    launches = tuple(c.launches for c in counters)
     _finite_metrics("age train", first, REGRESSION_METRICS)
     trial = first["trial_directory"]
     root = os.path.join(trial, "checkpoints")
@@ -1871,7 +2033,8 @@ def age_cli_main_path(dev, logs: str) -> None:
     if min(launches) < 1:
         raise AssertionError(f"age cli: norm launches {launches}")
     log(f"age cli train: 4 steps, checkpoints step_2 and step_4, norm "
-        f"launches (forward, backward) {launches}; {json.dumps(first)}")
+        f"launches (forward, backward, second order) {launches}; "
+        f"{json.dumps(first)}")
     fresh = AgeExperiment(Settings(**flags), device=dev)
     fresh.prepare_for_evaluation(os.path.join(root, "step_4"))
     compared = _assert_restored(fresh, os.path.join(root, "step_4"))
@@ -2000,7 +2163,8 @@ def tier_train_main_path(name, settings, dev, card: str) -> dict:
     counters = {"extract_patches": extract_patches,
                 "extract_rescaled_patches": extract_rescaled_patches,
                 "group_norm_act_fwd": fn._launch_fwd,
-                "group_norm_act_bwd": fn._launch_bwd}
+                "group_norm_act_bwd": fn._launch_bwd,
+                "group_norm_act_second_order": fn._launch_second_order}
     for counter in counters.values():
         counter.launches = 0
     channels, apply_s = [], []
@@ -2040,7 +2204,8 @@ def tier_train_main_path(name, settings, dev, card: str) -> dict:
         aux = settings.crowd_label_type != "density"
         d_norms = D_NORMS[settings.crowd_model]
         validations = steps // VALIDATION_PERIOD
-        per_step = dict(zip(("group_norm_act_fwd", "group_norm_act_bwd"),
+        per_step = dict(zip(("group_norm_act_fwd", "group_norm_act_bwd",
+                             "group_norm_act_second_order"),
                             crowd_norm_launches(d_norms)))
         per_step["extract_patches"] = 0 if host or rescale else 3
         per_step["extract_rescaled_patches"] = 3 if rescale else 0
@@ -2149,7 +2314,9 @@ def aux_cli_main_path(dev, raw_root: str, root: str) -> None:
             "--seed=0", "--crowd_label_type", "iknn", "--crowd_model",
             "jointdcnn", "--crowd_hbm_window", "8", "--crowd_window_slices",
             "4", "--crowd_window_refresh_period", "1"]
-    fn._launch_fwd.launches = fn._launch_bwd.launches = 0
+    counters = (fn._launch_fwd, fn._launch_bwd, fn._launch_second_order)
+    for counter in counters:
+        counter.launches = 0
     t0 = time.perf_counter()
     first = _cli(base + ["--steps_to_run", "4", "--save_step_period", "2",
                          "--validation_step_period", "4"])
@@ -2157,10 +2324,10 @@ def aux_cli_main_path(dev, raw_root: str, root: str) -> None:
     # 4 steps, the validation pass at step 4, then the command line's
     # evaluate() and test(): D over 2 chunks of validation images and 1
     # of test images.
-    fwd, bwd = crowd_norm_launches(D_NORMS["jointdcnn"])
+    fwd, bwd, second = crowd_norm_launches(D_NORMS["jointdcnn"])
     want = (4 * fwd + crowd_launches_per_validation(6)["group_norm_act_fwd"]
-            + 6 * (2 + 1), 4 * bwd)
-    got = (fn._launch_fwd.launches, fn._launch_bwd.launches)
+            + 6 * (2 + 1), 4 * bwd, 4 * second)
+    got = tuple(c.launches for c in counters)
     if got != want:
         raise AssertionError(f"aux cli: norm launches {got}, not {want}")
     trial = first["trial_directory"]
@@ -2213,7 +2380,8 @@ def _launch_counters():
     return {"extract_patches": extract_patches,
             "extract_rescaled_patches": extract_rescaled_patches,
             "group_norm_act_fwd": fn._launch_fwd,
-            "group_norm_act_bwd": fn._launch_bwd}
+            "group_norm_act_bwd": fn._launch_bwd,
+            "group_norm_act_second_order": fn._launch_second_order}
 
 
 def _gradient_reduce_ms(experiment) -> float:
@@ -2400,7 +2568,9 @@ def dp_main_path(dev, logs: str, card: str, pallas_ms: float) -> dict:
                                    TIMED_STEPS)
     per_step = {"extract_patches": 3, "extract_rescaled_patches": 0,
                 "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
-                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"],
+                "group_norm_act_second_order":
+                    NORM_LAUNCHES_PER_STEP["second_order"]}
     _dp_launches(got["launches"], per_step, STEPS,
                  STEPS // VALIDATION_PERIOD, "world of 1")
     check_crowd_trial(trial, STEPS)
@@ -2492,7 +2662,9 @@ def dp_main_path(dev, logs: str, card: str, pallas_ms: float) -> dict:
     ranks_out = [window_a, window_b]
     per_step = {"extract_patches": 0, "extract_rescaled_patches": 3,
                 "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
-                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"],
+                "group_norm_act_second_order":
+                    NORM_LAUNCHES_PER_STEP["second_order"]}
     steps = window_settings.steps_to_run
     for r, got in enumerate(ranks_out):
         _dp_launches(got["launches"], per_step, steps, 1, f"rank {r}")
@@ -2545,7 +2717,8 @@ DISPATCH_SMALL = dict(batch_size=8, image_patch_size=64, model_base_width=16)
 # Kernel names in a Chrome trace (csrc/patches.cu, csrc/fused_norm.cu).
 TRACE_KERNELS = {"extract_patches": "::sampler_kernel<",
                  "group_norm_act_fwd": "::fwd_kernel<",
-                 "group_norm_act_bwd": "::bwd_kernel<"}
+                 "group_norm_act_bwd": "::bwd_kernel<",
+                 "group_norm_act_second_order": "::second_order_kernel<"}
 
 
 def _manual_crowd(settings, dev):
@@ -2727,7 +2900,9 @@ def dispatch_train_main_path(name, settings, dev, card: str,
     per_step = {"extract_patches": 0 if rescale else 3,
                 "extract_rescaled_patches": 3 if rescale else 0,
                 "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
-                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"],
+                "group_norm_act_second_order":
+                    NORM_LAUNCHES_PER_STEP["second_order"]}
     _dp_launches(got["launches"], per_step, steps, steps // VALIDATION_PERIOD,
                  f"dispatch (b) {name}")
     if got["step"] != steps or (got["captures"], got["replays"]) != (
@@ -2749,9 +2924,10 @@ def dispatch_train_main_path(name, settings, dev, card: str,
     start, end = settings.profile_step_range
     traced = _trace_kernels(os.path.join(trial, "profile",
                                          f"steps_{start}_{end}.json"))
-    want = {"extract_patches": k * 3, "group_norm_act_fwd": k * per_step[
-        "group_norm_act_fwd"], "group_norm_act_bwd": k * per_step[
-        "group_norm_act_bwd"]}
+    want = {"extract_patches": k * 3, **{
+        kernel: k * per_step[kernel] for kernel in (
+            "group_norm_act_fwd", "group_norm_act_bwd",
+            "group_norm_act_second_order")}}
     # CUPTI drops kernel records, at a replay's start or in its middle,
     # once a process has run several profiler sessions (seen from the
     # seventh on): the world of 1's rank, a fresh process, is held to the
@@ -3290,7 +3466,9 @@ def tp_main_path(dev, logs: str, card: str) -> dict:
     # (b) the flagship widths
     per_step = {"extract_patches": 3, "extract_rescaled_patches": 0,
                 "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
-                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"],
+                "group_norm_act_second_order":
+                    NORM_LAUNCHES_PER_STEP["second_order"]}
     steps = flagship.steps_to_run
     want_shapes = {kind: sorted(
         shape[:3] for shape in TP_NORM_SHAPES
@@ -3416,7 +3594,9 @@ def tools_main_path(dev, logs: str, card: str) -> dict:
         exp.close()
     per_step = {"extract_patches": 3, "extract_rescaled_patches": 0,
                 "group_norm_act_fwd": NORM_LAUNCHES_PER_STEP["fwd"],
-                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"]}
+                "group_norm_act_bwd": NORM_LAUNCHES_PER_STEP["bwd"],
+                "group_norm_act_second_order":
+                    NORM_LAUNCHES_PER_STEP["second_order"]}
     for kernel, count in per_step.items():
         if launches[kernel] != count * steps:
             raise AssertionError(f"window bench: {kernel} launched "

@@ -1,4 +1,5 @@
-// Fused GroupNorm + LeakyReLU: forward and backward.
+// Fused GroupNorm + LeakyReLU: forward, backward, and the backward's own
+// VJP (the second order; see second_order_kernel).
 //
 // Replaces the TPU kernels srgan_tpu/ops/fused_norm.py::_fwd_kernel and
 // ::_bwd_kernel. Over x [B, HW, C] (NHWC flattened; C fastest), with
@@ -76,7 +77,8 @@ constexpr int kMaxChannels = 6144;
 constexpr int kMaxCluster = 16;
 constexpr int kMaxSmem = 232448;
 // Resident rows arrive in at most this many chunks, one mbarrier each:
-// the forward's in 4, the backward's (two sources) in 2. More chunks let
+// the forward's in 4, the backward's (two sources) and the second order's
+// (three) in 2. More chunks let
 // the statistics pass start sooner but cost a wait each; on the H100 the
 // backward measured faster with 2 than with 4 or 8, the forward no faster
 // with 8 than with 4.
@@ -109,11 +111,16 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
 }
 
 // V consecutive elements at p (shared or global memory) as floats: one
-// 16-byte access when V fills 16 bytes.
+// 16- or 8-byte access when V fills 16 or 8 bytes.
 template <typename T, int V>
 __device__ __forceinline__ void load(const T* p, float (&v)[V]) {
   if constexpr (V * sizeof(T) == 16) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = to_float(e[i]);
+  } else if constexpr (V * sizeof(T) == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
     const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
     for (int i = 0; i < V; ++i) v[i] = to_float(e[i]);
@@ -131,6 +138,12 @@ __device__ __forceinline__ void store(T* p, const float (&v)[V]) {
 #pragma unroll
     for (int i = 0; i < V; ++i) e[i] = from_float<T>(v[i]);
     *reinterpret_cast<uint4*>(p) = u;
+  } else if constexpr (V * sizeof(T) == 8) {
+    uint2 u;
+    T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int i = 0; i < V; ++i) e[i] = from_float<T>(v[i]);
+    *reinterpret_cast<uint2*>(p) = u;
   } else {
 #pragma unroll
     for (int i = 0; i < V; ++i) p[i] = from_float<T>(v[i]);
@@ -240,6 +253,9 @@ struct Lanes {
   }
 };
 
+// The second order views part, totals and stats (3·align16(8·C) bytes
+// in a row) as one run of [5, C] per-channel sums, later [5, G ≤ C] group
+// coefficients.
 template <typename T>
 struct Smem {
   uint64_t* bars;
@@ -248,29 +264,31 @@ struct Smem {
   float* stats;   // [2, G] the example's group statistics
   float* red;     // [kThreads · 8] row-lane reduction scratch
   T* xs;          // [resident, C]
-  T* dys;         // [resident, C], backward only
+  T* dys;         // [resident, C], backward and second order
+  T* gdxs;        // [resident, C], the cotangent of dx, second order only
   __device__ Smem(unsigned char* base, const Tile& t) {
     const int vec_bytes = align16(2 * t.channels * 4);
+    const int rows_bytes = align16(t.resident * t.channels * static_cast<int>(sizeof(T)));
     bars = reinterpret_cast<uint64_t*>(base);
     part = reinterpret_cast<float*>(base + kBarrierBytes);
     totals = reinterpret_cast<float*>(base + kBarrierBytes + vec_bytes);
     stats = reinterpret_cast<float*>(base + kBarrierBytes + 2 * vec_bytes);
     red = reinterpret_cast<float*>(base + kBarrierBytes + 3 * vec_bytes);
     xs = reinterpret_cast<T*>(base + fixed_smem(t.channels));
-    dys = reinterpret_cast<T*>(base + fixed_smem(t.channels) +
-                               align16(t.resident * t.channels * static_cast<int>(sizeof(T))));
+    dys = reinterpret_cast<T*>(base + fixed_smem(t.channels) + rows_bytes);
+    gdxs = reinterpret_cast<T*>(base + fixed_smem(t.channels) + 2 * rows_bytes);
   }
 };
 
 // The block's `nres` resident rows of each of N sources (x, and dy in the
-// backward), in at most `max_chunks` ≤ kChunks chunks. With 16-byte
-// vectors, thread 0 starts every chunk at once with one bulk copy per
+// backward, and the cotangent of dx in the second order), in at most
+// `max_chunks` ≤ kChunks chunks. With rows of whole 16-byte vectors
+// (kBulk), thread 0 starts every chunk at once with one bulk copy per
 // source, completing on the chunk's mbarrier, and wait(k) blocks until
 // chunk k has landed; otherwise the block copies the rows element by
 // element and every chunk is ready at once.
-template <typename T, int V>
+template <typename T, int V, bool kBulk = V * sizeof(T) == 16>
 struct Loader {
-  static constexpr bool kBulk = V * sizeof(T) == 16;
   uint64_t* bars;
   int chunk_rows, chunks, nres;
   template <int N>
@@ -307,16 +325,17 @@ struct Loader {
   }
 };
 
-// Per-channel sums of the block's rows into s.part [2, C]: with one thread
-// per vector (rt == 1) each thread has stored its sums already; otherwise
-// (one set, ct·V == C) a0 and a1 are each thread's sums over its row
-// lanes, summed here over the rt row lanes of each channel in a fixed
-// order. Where a warp holds whole rows (ct divides 32), its row lanes are
-// summed with an xor tree of shuffles first, then the warps' sums in warp
-// order; otherwise the row lanes in order through the scratch.
-template <typename T, int V>
-__device__ void reduce_rows(const Lanes<V>& l, const Smem<T>& s, int channels,
-                            float (&a0)[V], float (&a1)[V]) {
+// Per-channel sums of the block's rows into out [N, C] (shared or global
+// memory): with one thread per vector (rt == 1) each thread has stored
+// its sums already; otherwise (one set, ct·V == C) a[q] are each thread's
+// sums over its row lanes, summed here over the rt row lanes of each
+// channel in a fixed order, through the scratch `red`. Where a warp holds
+// whole rows (ct divides 32), its row lanes are summed with an xor tree of
+// shuffles first, then the warps' sums in warp order, two sums at a time;
+// otherwise the row lanes in order, a sum at a time.
+template <int N, int V>
+__device__ void reduce_rows(const Lanes<V>& l, float* red, int channels, float (&a)[N][V],
+                            float* out) {
   if (l.rt == 1) {
     __syncthreads();
     return;
@@ -325,55 +344,59 @@ __device__ void reduce_rows(const Lanes<V>& l, const Smem<T>& s, int channels,
   if (l.ct < 32 && 32 % l.ct == 0) {
     for (int off = 16; off >= l.ct; off >>= 1) {
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        a0[i] += __shfl_xor_sync(0xffffffffu, a0[i], off);
-        a1[i] += __shfl_xor_sync(0xffffffffu, a1[i], off);
+      for (int q = 0; q < N; ++q) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) a[q][i] += __shfl_xor_sync(0xffffffffu, a[q][i], off);
       }
     }
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    if (lane < l.ct) {  // [2, kWarps, C]: 2·16·C ≤ kThreads·8 floats, C = ct·V ≤ 16·8
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        s.red[warp * channels + lane * V + i] = a0[i];
-        s.red[(kWarps + warp) * channels + lane * V + i] = a1[i];
+    for (int q0 = 0; q0 < N; q0 += 2) {
+      const int pair = q0 + 1 < N ? 2 : 1;
+      if (lane < l.ct) {  // [2, kWarps, C]: 2·16·C ≤ kThreads·8 floats, C = ct·V ≤ 16·8
+#pragma unroll
+        for (int q = 0; q < pair; ++q) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) red[(q * kWarps + warp) * channels + lane * V + i] = a[q0 + q][i];
+        }
       }
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < 2 * channels; j += kThreads) {
-      const int q = j / channels, c = j % channels;
-      float acc = 0.f;
+      __syncthreads();
+      for (int j = threadIdx.x; j < pair * channels; j += kThreads) {
+        const int q = j / channels, c = j % channels;
+        float acc = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) acc += s.red[(q * kWarps + w) * channels + c];
-      s.part[j] = acc;
+        for (int w = 0; w < kWarps; ++w) acc += red[(q * kWarps + w) * channels + c];
+        out[q0 * channels + j] = acc;
+      }
+      __syncthreads();
     }
-    __syncthreads();
     return;
   }
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
+  for (int q = 0; q < N; ++q) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) s.red[threadIdx.x * V + i] = q ? a1[i] : a0[i];
+    for (int i = 0; i < V; ++i) red[threadIdx.x * V + i] = a[q][i];
     __syncthreads();
     for (int j = threadIdx.x; j < channels; j += kThreads) {
       float acc = 0.f;
 #pragma unroll 8
-      for (int k = 0; k < l.rt; ++k) acc += s.red[k * channels + j];
-      s.part[q * channels + j] = acc;
+      for (int k = 0; k < l.rt; ++k) acc += red[k * channels + j];
+      out[q * channels + j] = acc;
     }
     __syncthreads();
   }
 }
 
-// A thread's sums of one set: into s.part at once where it alone owns
+// A thread's sums of one set: into out [N, C] at once where it alone owns
 // the vector.
-template <typename T, int V>
-__device__ __forceinline__ void own_sums(const Lanes<V>& l, const Smem<T>& s, int channels,
-                                         int cv, const float (&a0)[V], const float (&a1)[V]) {
+template <int N, int V>
+__device__ __forceinline__ void own_sums(const Lanes<V>& l, float* out, int channels, int cv,
+                                         const float (&a)[N][V]) {
   if (l.rt == 1 && cv >= 0) {
 #pragma unroll
-    for (int i = 0; i < V; ++i) {
-      s.part[cv * V + i] = a0[i];
-      s.part[channels + cv * V + i] = a1[i];
+    for (int q = 0; q < N; ++q) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) out[q * channels + cv * V + i] = a[q][i];
     }
   }
 }
@@ -466,7 +489,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Σx and Σx² per channel, a set at a time: the resident rows chunk by
   // chunk as they land, then the streamed rows from device memory.
-  float a0[V], a1[V];
+  float a[2][V];
   auto accumulate = [&](int cv, const T* rows, int r0, int r1) {
 #pragma unroll 4
     for (int row = r0 + l.r; row < r1; row += l.rt) {
@@ -474,23 +497,23 @@ __global__ void __launch_bounds__(kThreads, 1)
       load<T, V>(rows + static_cast<size_t>(row) * C + cv * V, v);
 #pragma unroll
       for (int i = 0; i < V; ++i) {
-        a0[i] += v[i];
-        a1[i] += v[i] * v[i];
+        a[0][i] += v[i];
+        a[1][i] += v[i] * v[i];
       }
     }
   };
   for (int si = 0; si < l.sets; ++si) {
     const int cv = l.vector(si);
 #pragma unroll
-    for (int i = 0; i < V; ++i) a0[i] = a1[i] = 0.f;
+    for (int i = 0; i < V; ++i) a[0][i] = a[1][i] = 0.f;
     for (int k = 0; k < loader.chunks; ++k) {
       loader.wait(k);
       if (cv >= 0) accumulate(cv, s.xs, loader.begin(k), loader.end(k));
     }
     if (cv >= 0) accumulate(cv, xb, nres, nrows);
-    own_sums<T, V>(l, s, C, cv, a0, a1);
+    own_sums(l, s.part, C, cv, a);
   }
-  reduce_rows<T, V>(l, s, C, a0, a1);
+  reduce_rows(l, s.red, C, a, s.part);
 
   // The example's statistics, the same in every block of the cluster.
   const float n = static_cast<float>(t.hw) * static_cast<float>(cg_);
@@ -587,7 +610,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
 
   // Σdy0 and Σdy0·x̂ per channel, a set at a time.
-  float a0[V], a1[V];
+  float a[2][V];
   auto accumulate = [&](int cv, const T* xr, const T* dyr, int r0, int r1) {
 #pragma unroll 2
     for (int row = r0 + l.r; row < r1; row += l.rt) {
@@ -599,24 +622,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int i = 0; i < V; ++i) {
         float xhat;
         const float dy0 = masked_grad(xv[i], gv[i], m[i], rs[i], ga[i], be[i], t.slope, xhat);
-        a0[i] += dy0;
-        a1[i] += dy0 * xhat;
+        a[0][i] += dy0;
+        a[1][i] += dy0 * xhat;
       }
     }
   };
   for (int si = 0; si < l.sets; ++si) {
     const int cv = l.vector(si);
 #pragma unroll
-    for (int i = 0; i < V; ++i) a0[i] = a1[i] = 0.f;
+    for (int i = 0; i < V; ++i) a[0][i] = a[1][i] = 0.f;
     if (cv >= 0) constants(cv);
     for (int k = 0; k < loader.chunks; ++k) {
       loader.wait(k);
       if (cv >= 0) accumulate(cv, s.xs, s.dys, loader.begin(k), loader.end(k));
     }
     if (cv >= 0) accumulate(cv, xb, dyb, nres, nrows);
-    own_sums<T, V>(l, s, C, cv, a0, a1);
+    own_sums(l, s.part, C, cv, a);
   }
-  reduce_rows<T, V>(l, s, C, a0, a1);
+  reduce_rows(l, s.red, C, a, s.part);
 
   // The block's per-channel sums for dscale and dbias, and the group means
   // of dx̂ and dx̂·x̂ over the example (Σdx̂ = scale·Σdy0 within a channel,
@@ -667,6 +690,256 @@ __global__ void __launch_bounds__(kThreads, 1)
   cluster_wait();
 }
 
+// The second order: the VJP of the backward map (x, scale, bias, dy) ↦
+// (dx, dscale, dbias) at the cotangents (g_dx, g_dscale, g_dbias), mean
+// and rstd differentiated as functions of x, the activation's mask held
+// constant (so g_bias = 0); ops/fused_norm.py
+// `group_norm_act_bwd_vjp_plain` is its spec and derivation. No TPU
+// kernel: the JAX package differentiates `_reference_bwd` by its
+// `custom_jvp` rule, and the gradient penalty's outer gradient takes it
+// through each of D's norms at the interpolates. With x̂ = (x − mean)·rstd,
+// e = dy·mask, a = e·scale and r = rstd, over each (example, group) of
+// n = HW·C/G elements:
+//
+//   α    = r·(g_dx − u − x̂·v),  u = Σg_dx/n, v = Σg_dx·x̂/n
+//   g_dy = mask·(g_dscale·x̂ + g_dbias + scale·α)
+//   g_x  = r·(g_dscale − scale·r·v)·e − r²·(Σa·x̂/n)·g_dx − r·Σh/n
+//          − x̂·r·(Σh·x̂ + ρ·r)/n
+//   g_scale = Σ_{b,rows} e·α
+//
+// with ρ = Σg_dx·a − Σa·u − Σa·x̂·v, Σh = Σg_dscale·e − r·(Σa·v + Σa·x̂·u)
+// and Σh·x̂ = Σg_dscale·e·x̂ − 2·r·Σa·x̂·v. Bytes bound it as they bound the
+// backward: read x, dy and g_dx, write g_x and g_dy. So it is the
+// backward's cluster pass with three sources resident: a first pass of
+// per-channel sums (Σe, Σe·x̂, Σg_dx·e, Σg_dx, Σg_dx·x̂) that gives the
+// seven group sums of the block, an exchange of those over the cluster,
+// and an elementwise pass that writes g_x and g_dy from shared memory and
+// sums each channel's e·α for second_order_params_kernel.
+//
+// The group sums go through device memory, not distributed shared memory:
+// seven a group for any group count do not fit beside [5, C] per-channel
+// sums at C = G = 6144. Each block writes its own (group_sums[b, rank],
+// [7, G]) before the cluster barrier (release, acquire) and reads the
+// cluster's through L2 after it, in rank order, so every block derives the
+// same coefficients. Vectors are 4 elements (8 bytes of bfloat16): the
+// elementwise pass holds 12 per-channel constants a vector in registers.
+struct SecondOrder {
+  const void* x;
+  const void* dy;
+  const void* g_dx;
+  const float* scale;
+  const float* bias;
+  const float* mean;
+  const float* rstd;
+  const float* g_dscale;
+  const float* g_dbias;
+  void* g_x;
+  void* g_dy;
+  float* sums;        // [batch·cluster, C] each block's Σe·α, then the fold's [kFoldRuns, C]
+  float* group_sums;  // [batch, cluster, 7, G] each block's group sums
+};
+
+constexpr int kGroupSums = 7;
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 1) second_order_kernel(SecondOrder p, Tile t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem<T> s(smem, t);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.y;
+  const int C = t.channels;
+  const int G = t.groups;
+  const int cg_ = C / G;
+  const int row0 = rank * t.rows;
+  const int nrows = max(0, min(t.rows, t.hw - row0));
+  const int nres = min(t.resident, nrows);
+  const size_t base = (static_cast<size_t>(b) * t.hw + row0) * C;
+  const T* xb = static_cast<const T*>(p.x) + base;
+  const T* dyb = static_cast<const T*>(p.dy) + base;
+  const T* gb = static_cast<const T*>(p.g_dx) + base;
+  T* gxb = static_cast<T*>(p.g_x) + base;
+  T* gdyb = static_cast<T*>(p.g_dy) + base;
+  const Lanes<V> l(C);
+  const T* const src[3] = {xb, dyb, gb};
+  T* const dst[3] = {s.xs, s.dys, s.gdxs};
+  const Loader<T, V, (V != 1)> loader(s.bars, src, dst, nres, C, kBwdChunks);
+
+  float m[V], rs[V], ga[V], be[V];
+  auto constants = [&](int cv) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = cv * V + i;
+      const int g = b * G + c / cg_;
+      m[i] = p.mean[g];
+      rs[i] = p.rstd[g];
+      ga[i] = p.scale[c];
+      be[i] = p.bias[c];
+    }
+  };
+
+  // Σe, Σe·x̂, Σg_dx·e, Σg_dx and Σg_dx·x̂ per channel, a set at a time.
+  float a[5][V];
+  auto accumulate = [&](int cv, const T* xr, const T* dyr, const T* gr, int r0, int r1) {
+#pragma unroll 2
+    for (int row = r0 + l.r; row < r1; row += l.rt) {
+      const size_t off = static_cast<size_t>(row) * C + cv * V;
+      float xv[V], ev[V], gv[V];
+      load<T, V>(xr + off, xv);
+      load<T, V>(dyr + off, ev);
+      load<T, V>(gr + off, gv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        float xhat;
+        const float e = masked_grad(xv[i], ev[i], m[i], rs[i], ga[i], be[i], t.slope, xhat);
+        a[0][i] += e;
+        a[1][i] += e * xhat;
+        a[2][i] += gv[i] * e;
+        a[3][i] += gv[i];
+        a[4][i] += gv[i] * xhat;
+      }
+    }
+  };
+  for (int si = 0; si < l.sets; ++si) {
+    const int cv = l.vector(si);
+#pragma unroll
+    for (int q = 0; q < 5; ++q) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) a[q][i] = 0.f;
+    }
+    if (cv >= 0) constants(cv);
+    for (int k = 0; k < loader.chunks; ++k) {
+      loader.wait(k);
+      if (cv >= 0) accumulate(cv, s.xs, s.dys, s.gdxs, loader.begin(k), loader.end(k));
+    }
+    if (cv >= 0) accumulate(cv, xb, dyb, gb, nres, nrows);
+    own_sums(l, s.part, C, cv, a);
+  }
+  reduce_rows(l, s.red, C, a, s.part);
+
+  // The block's seven group sums, weighted by scale and g_dscale over each
+  // group's channels (a segment of lanes per group, a fixed xor tree, as
+  // fold_cluster), into device memory: Σa, Σa·x̂, Σg_dx, Σg_dx·x̂, Σg_dx·a,
+  // Σg_dscale·e, Σg_dscale·e·x̂.
+  {
+    float* mine = p.group_sums + (static_cast<size_t>(b) * t.cluster + rank) * kGroupSums * G;
+    int seg = 1;
+    while (seg < cg_ && seg < 32) seg *= 2;
+    const int lane = threadIdx.x % 32;
+    const int per_warp = 32 / seg;
+    for (int g0 = threadIdx.x / 32 * per_warp; g0 < G; g0 += kThreads / 32 * per_warp) {
+      const int g = g0 + lane / seg;
+      float v[kGroupSums] = {};
+      if (g < G) {
+        for (int k = lane % seg; k < cg_; k += seg) {
+          const int c = g * cg_ + k;
+          const float w = p.scale[c], pd = p.g_dscale[c];
+          const float e = s.part[c], ex = s.part[C + c], ge = s.part[2 * C + c];
+          v[0] += w * e;
+          v[1] += w * ex;
+          v[2] += s.part[3 * C + c];
+          v[3] += s.part[4 * C + c];
+          v[4] += w * ge;
+          v[5] += pd * e;
+          v[6] += pd * ex;
+        }
+      }
+      for (int off = seg / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int q = 0; q < kGroupSums; ++q) v[q] += __shfl_xor_sync(0xffffffffu, v[q], off);
+      }
+      if (g < G && lane % seg == 0) {
+#pragma unroll
+        for (int q = 0; q < kGroupSums; ++q) __stcg(mine + q * G + g, v[q]);
+      }
+    }
+  }
+  __threadfence();
+  cluster_arrive();
+  cluster_wait();
+
+  // The example's coefficients of each group, from the cluster's group sums
+  // in rank order, over the spent per-channel sums: [5, G] of r·u, r·v,
+  // −r²·Σa·x̂/n, −r·Σh/n and −r·(Σh·x̂ + ρ·r)/n.
+  float* coef = s.part;
+  {
+    const float n = static_cast<float>(t.hw) * static_cast<float>(cg_);
+    const float* all = p.group_sums + static_cast<size_t>(b) * t.cluster * kGroupSums * G;
+    for (int g = threadIdx.x; g < G; g += kThreads) {
+      float v[kGroupSums] = {};
+      for (int q = 0; q < t.cluster; ++q) {
+#pragma unroll
+        for (int k = 0; k < kGroupSums; ++k) v[k] += __ldcg(all + (q * kGroupSums + k) * G + g);
+      }
+      const float r = p.rstd[b * G + g];
+      const float u = v[2] / n, vv = v[3] / n;
+      const float rho = v[4] - v[0] * u - v[1] * vv;
+      const float h0 = v[5] - r * (v[0] * vv + v[1] * u);
+      const float h1 = v[6] - 2.f * r * v[1] * vv;
+      coef[g] = r * u;
+      coef[G + g] = r * vv;
+      coef[2 * G + g] = -r * r * v[1] / n;
+      coef[3 * G + g] = -r * h0 / n;
+      coef[4 * G + g] = -r * (h1 + rho * r) / n;
+    }
+  }
+  __syncthreads();
+
+  // g_x and g_dy a set at a time, from the resident rows, then the
+  // streamed rows read again; each channel's Σe·α into sums[b, rank].
+  float* row_sums = p.sums + (static_cast<size_t>(b) * t.cluster + rank) * C;
+  float ea[1][V];
+  for (int si = 0; si < l.sets; ++si) {
+    const int cv = l.vector(si);
+#pragma unroll
+    for (int i = 0; i < V; ++i) ea[0][i] = 0.f;
+    if (cv >= 0) {
+      constants(cv);
+      float ru[V], rv[V], fg[V], f0[V], fx[V], pd[V], qd[V], fe[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const int c = cv * V + i;
+        const int g = c / cg_;
+        ru[i] = coef[g];
+        rv[i] = coef[G + g];
+        fg[i] = coef[2 * G + g];
+        f0[i] = coef[3 * G + g];
+        fx[i] = coef[4 * G + g];
+        pd[i] = p.g_dscale[c];
+        qd[i] = p.g_dbias[c];
+        fe[i] = rs[i] * (pd[i] - ga[i] * rv[i]);
+      }
+      auto outputs = [&](const T* xr, const T* dyr, const T* gr, int r0, int r1) {
+#pragma unroll 2
+        for (int row = r0 + l.r; row < r1; row += l.rt) {
+          const size_t off = static_cast<size_t>(row) * C + cv * V;
+          float xv[V], dv[V], gv[V];
+          load<T, V>(xr + off, xv);
+          load<T, V>(dyr + off, dv);
+          load<T, V>(gr + off, gv);
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const float xhat = normalized(xv[i], m[i], rs[i]);
+            const bool pos = pre_activation(xhat, ga[i], be[i]) > 0.f;
+            const float e = pos ? dv[i] : __fmul_rn(dv[i], t.slope);
+            const float alpha = rs[i] * gv[i] - ru[i] - rv[i] * xhat;
+            const float inner = pd[i] * xhat + qd[i] + ga[i] * alpha;
+            ea[0][i] += e * alpha;
+            dv[i] = pos ? inner : t.slope * inner;
+            xv[i] = fe[i] * e + fg[i] * gv[i] + f0[i] + fx[i] * xhat;
+          }
+          store<T, V>(gxb + off, xv);
+          store<T, V>(gdyb + off, dv);
+        }
+      };
+      outputs(s.xs, s.dys, s.gdxs, 0, nres);
+      outputs(xb, dyb, gb, nres, nrows);
+    }
+    own_sums(l, row_sums, C, cv, ea);
+  }
+  reduce_rows(l, s.red, C, ea, row_sums);
+}
+
 // dbias[c] = Σ_r sums[r, 0, c], dscale[c] = Σ_r sums[r, 1, c] over the
 // batch·cluster rows of [2, C] sums, in two launches of bwd_params_kernel
 // and a fixed order, so a run repeats: first kFoldRuns runs of rows, each
@@ -676,40 +949,64 @@ __global__ void __launch_bounds__(kThreads, 1)
 // kParamWarps warps sums every kParamWarps-th row of the run, then warp 0
 // adds the warps' sums in warp order. The first launch spreads the sums
 // (up to 6 MB) over many SMs: one block per 32 entries would read them
-// with the few loads in flight of one SM each.
+// with the few loads in flight of one SM each. second_order_params_kernel
+// folds the second order's [C] rows of Σe·α into g_scale the same way.
 constexpr int kParamWarps = 16;
 constexpr int kFoldRuns = 32;
 
-__global__ void __launch_bounds__(kParamWarps * 32)
-    bwd_params_kernel(const float* __restrict__ in, float* __restrict__ out,
-                      float* __restrict__ dscale, float* __restrict__ dbias, int rows, int run,
-                      int channels) {
+// One launch of the fold over rows of `width` entries: into out's row of
+// partial sums, or (out null) through store(j, total).
+template <typename Store>
+__device__ __forceinline__ void fold_rows(const float* __restrict__ in, float* __restrict__ out,
+                                          int rows, int run, int width, Store store) {
   __shared__ float part[kParamWarps][32];
   const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
   const int j = blockIdx.x * 32 + lane;
   const int seg = static_cast<int>(blockIdx.y);
   const int r1 = min(rows, (seg + 1) * run);
   float acc = 0.f;
-  if (j < 2 * channels) {
+  if (j < width) {
 #pragma unroll 4
     for (int r = seg * run + w; r < r1; r += kParamWarps) {
-      acc += in[static_cast<size_t>(r) * 2 * channels + j];
+      acc += in[static_cast<size_t>(r) * width + j];
     }
   }
   part[w][lane] = acc;
   __syncthreads();
-  if (w == 0 && j < 2 * channels) {
+  if (w == 0 && j < width) {
     float total = 0.f;
 #pragma unroll
     for (int k = 0; k < kParamWarps; ++k) total += part[k][lane];
     if (out) {
-      out[static_cast<size_t>(seg) * 2 * channels + j] = total;
-    } else if (j < channels) {
+      out[static_cast<size_t>(seg) * width + j] = total;
+    } else {
+      store(j, total);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kParamWarps * 32)
+    bwd_params_kernel(const float* __restrict__ in, float* __restrict__ out,
+                      float* __restrict__ dscale, float* __restrict__ dbias, int rows, int run,
+                      int channels) {
+  fold_rows(in, out, rows, run, 2 * channels, [=](int j, float total) {
+    if (j < channels) {
       dbias[j] = total;
     } else {
       dscale[j - channels] = total;
     }
-  }
+  });
+}
+
+// g_scale[c] = Σ_r sums[r, c]; g_bias = 0.
+__global__ void __launch_bounds__(kParamWarps * 32)
+    second_order_params_kernel(const float* __restrict__ in, float* __restrict__ out,
+                               float* __restrict__ g_scale, float* __restrict__ g_bias,
+                               int rows, int run, int channels) {
+  fold_rows(in, out, rows, run, channels, [=](int j, float total) {
+    g_scale[j] = total;
+    g_bias[j] = 0.f;
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -803,6 +1100,31 @@ int launch_bwd(const void* x, const float* scale, const float* bias, const float
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int V>
+int launch_second_order(const SecondOrder& p, float* g_scale, float* g_bias, int batch,
+                        const Tile& t, int smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int e = configure<second_order_kernel<T, V>>(t, batch, smem, stream, cfg, attr)) return e;
+  if (int e = launched(cudaLaunchKernelEx(&cfg, second_order_kernel<T, V>, p, t))) return e;
+  const int rows = batch * t.cluster;
+  float* partial = p.sums + static_cast<size_t>(rows) * t.channels;
+  const int blocks = (t.channels + 31) / 32;
+  second_order_params_kernel<<<dim3(blocks, kFoldRuns), kParamWarps * 32, 0, stream>>>(
+      p.sums, partial, nullptr, nullptr, rows, (rows + kFoldRuns - 1) / kFoldRuns, t.channels);
+  second_order_params_kernel<<<blocks, kParamWarps * 32, 0, stream>>>(
+      partial, nullptr, g_scale, g_bias, kFoldRuns, kFoldRuns, t.channels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <auto Kernel>
+int max_clusters(const Tile& t, int smem, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  if (int e = configure<Kernel>(t, 1, smem, nullptr, cfg, attr)) return e;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, Kernel, &cfg));
+}
+
 template <typename T>
 bool vectorized(int channels, std::initializer_list<const void*> ptrs) {
   if ((channels * sizeof(T)) % 16 != 0) return false;
@@ -881,36 +1203,62 @@ int srgan_group_norm_act_bwd(const void* x, const float* scale, const float* bia
   }
 }
 
-// How many clusters of the 16-byte-vector kernel (`backward` 0 or 1) at
-// this tiling the card holds at once (cudaOccupancyMaxActiveClusters),
+// x, dy, g_dx, g_x, g_dy: [batch, hw, channels] in `dtype`, contiguous.
+// scale, bias, g_dscale, g_dbias, g_scale, g_bias: [channels] float32.
+// mean, rstd: [batch, groups] float32 from the forward. sums: scratch
+// [batch·cluster + 32, channels] float32 (the blocks' Σe·α, then the
+// fold's partial sums); group_sums: scratch [batch, cluster, 7, groups]
+// float32. The tiling as the backward's, with x's, dy's and g_dx's
+// resident rows in `smem`. Returns as the forward does.
+int srgan_group_norm_act_second_order(const void* x, const float* scale, const float* bias,
+                                      const float* mean, const float* rstd, const void* dy,
+                                      const void* g_dx, const float* g_dscale,
+                                      const float* g_dbias, void* g_x, float* g_scale,
+                                      float* g_bias, void* g_dy, float* sums, float* group_sums,
+                                      int dtype, int batch, int hw, int channels, int groups,
+                                      int cluster, int rows, int resident, int smem, float slope,
+                                      void* stream) {
+  const Tile t{hw, channels, groups, cluster, rows, resident, slope, 0.f};
+  const SecondOrder p{x,        dy,      g_dx, scale, bias, mean,      rstd,
+                      g_dscale, g_dbias, g_x,  g_dy,  sums, group_sums};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 1:
+      if (int e = shape_error(batch, t, smem, 3, 4)) return e;
+      return vectorized<float>(channels, {x, dy, g_dx, g_x, g_dy})
+                 ? launch_second_order<float, 4>(p, g_scale, g_bias, batch, t, smem, s)
+                 : launch_second_order<float, 1>(p, g_scale, g_bias, batch, t, smem, s);
+    case 2:
+      if (int e = shape_error(batch, t, smem, 3, 2)) return e;
+      return vectorized<__nv_bfloat16>(channels, {x, dy, g_dx, g_x, g_dy})
+                 ? launch_second_order<__nv_bfloat16, 4>(p, g_scale, g_bias, batch, t, smem, s)
+                 : launch_second_order<__nv_bfloat16, 1>(p, g_scale, g_bias, batch, t, smem, s);
+    default:
+      return kInvalid;
+  }
+}
+
+// How many clusters of the 16-byte-vector kernel (`kind` 0 forward, 1
+// backward, 2 second order; the second order's vectors are 4 elements)
+// at this tiling the card holds at once (cudaOccupancyMaxActiveClusters),
 // through *clusters; returns the cudaError_t.
-int srgan_group_norm_act_max_clusters(int dtype, int backward, int cluster, int smem,
+int srgan_group_norm_act_max_clusters(int dtype, int kind, int cluster, int smem,
                                       int* clusters) {
   const Tile t{1, 8, 1, cluster, 1, 0, 0.f, 0.f};
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  int e = kInvalid;
-  auto query = [&](auto kernel) {
-    if (!e) e = static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
-  };
   if (dtype == 1) {
-    if (backward) {
-      e = configure<bwd_kernel<float, 4>>(t, 1, smem, nullptr, cfg, attr);
-      query(bwd_kernel<float, 4>);
-    } else {
-      e = configure<fwd_kernel<float, 4>>(t, 1, smem, nullptr, cfg, attr);
-      query(fwd_kernel<float, 4>);
+    switch (kind) {
+      case 0: return max_clusters<fwd_kernel<float, 4>>(t, smem, clusters);
+      case 1: return max_clusters<bwd_kernel<float, 4>>(t, smem, clusters);
+      case 2: return max_clusters<second_order_kernel<float, 4>>(t, smem, clusters);
     }
   } else if (dtype == 2) {
-    if (backward) {
-      e = configure<bwd_kernel<__nv_bfloat16, 8>>(t, 1, smem, nullptr, cfg, attr);
-      query(bwd_kernel<__nv_bfloat16, 8>);
-    } else {
-      e = configure<fwd_kernel<__nv_bfloat16, 8>>(t, 1, smem, nullptr, cfg, attr);
-      query(fwd_kernel<__nv_bfloat16, 8>);
+    switch (kind) {
+      case 0: return max_clusters<fwd_kernel<__nv_bfloat16, 8>>(t, smem, clusters);
+      case 1: return max_clusters<bwd_kernel<__nv_bfloat16, 8>>(t, smem, clusters);
+      case 2: return max_clusters<second_order_kernel<__nv_bfloat16, 4>>(t, smem, clusters);
     }
   }
-  return e;
+  return kInvalid;
 }
 
 const char* srgan_cuda_error_string(int code) {

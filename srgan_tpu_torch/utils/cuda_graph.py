@@ -49,13 +49,14 @@ Tensor = torch.Tensor
 
 def kernel_counters() -> Tuple:
     """The wrappers whose ``launches`` count the kernels a training step
-    launches: the two samplers and the fused norm's forward and
-    backward."""
+    launches: the two samplers and the fused norm's forward, backward and
+    second order."""
     from srgan_tpu_torch.ops import fused_norm
     from srgan_tpu_torch.ops.patches import (extract_patches,
                                              extract_rescaled_patches)
     return (extract_patches, extract_rescaled_patches,
-            fused_norm._launch_fwd, fused_norm._launch_bwd)
+            fused_norm._launch_fwd, fused_norm._launch_bwd,
+            fused_norm._launch_second_order)
 
 
 class TrainChunk:

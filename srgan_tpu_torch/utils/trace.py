@@ -183,6 +183,8 @@ def counters() -> Dict[str, int]:
             extract_rescaled_patches.launches,
         "fused_norm._launch_fwd.launches": fused_norm._launch_fwd.launches,
         "fused_norm._launch_bwd.launches": fused_norm._launch_bwd.launches,
+        "fused_norm._launch_second_order.launches":
+            fused_norm._launch_second_order.launches,
         "group_norm_act.layout_copies":
             fused_norm.group_norm_act.layout_copies,
         "density_maps.launches": density_maps.launches,

@@ -335,15 +335,126 @@ def test_fused_norm_kernels_equal_plain_at_the_age_shapes(shape, slope):
 def test_fused_norm_occupancy_query():
     """Every tiling the flagship's largest shapes take fits the card at
     least once."""
-    for kind in ("fwd", "bwd"):
+    for kind in ("fwd", "bwd", "second_order"):
         t = fn.norm_tiling(360, 12544, 64, torch.bfloat16, kind)
         assert fn.max_active_clusters(torch.bfloat16, kind, t) >= 1
 
 
+# The second-order kernel against its closed form
+# (``group_norm_act_bwd_vjp_plain``), bfloat16 unless stated: D's norms at
+# the flagship's interpolates, batch 120 (the second 256-channel norm has
+# the first's shape); JointDCNN's 512-channel stage, whose rows stream;
+# rows that are not whole 16-byte vectors (element loads, no bulk
+# copies); an explicit tiling that streams 1268 of each block's 1568
+# rows; float32, which streams at the largest stage; a group per channel
+# at the widest rows the kernels take. (shape, groups, tiling, dtype.)
+SECOND_ORDER_CASES = [
+    ((120, 12544, 64), 32, None, torch.bfloat16),
+    ((120, 3136, 128), 32, None, torch.bfloat16),
+    ((120, 3136, 256), 32, None, torch.bfloat16),
+    ((8, 3136, 512), 32, None, torch.bfloat16),
+    ((3, 40, 6), 3, None, torch.bfloat16),
+    ((3, 40, 6), 3, None, torch.float32),
+    ((2, 12544, 64), 32, fn.NormTiling(8, 1568, 300, 0), torch.bfloat16),
+    ((2, 12544, 64), 32, None, torch.float32),
+    ((3, 64, 64), 32, None, torch.float32),
+    ((2, 16, 6144), 6144, None, torch.bfloat16),
+]
+
+
+def _second_order_inputs(shape, groups, dtype, zero_params):
+    x, scale, bias, dy = _norm_inputs(shape, dtype)
+    gen = torch.Generator(device=x.device).manual_seed(2)
+    g_dx = torch.randn(shape, generator=gen, device=x.device).to(dtype)
+    c = shape[-1]
+    params = [torch.zeros(c, device=x.device) if zero_params else
+              torch.randn((c,), generator=gen, device=x.device)
+              for _ in range(2)]
+    _, mean, rstd = fn._launch_fwd(x, scale, bias, groups, 0.2, 1e-6)
+    return x, scale, bias, mean, rstd, dy, g_dx, *params
+
+
+def _second_order_within(got, want):
+    """g_x and g_dy within one bfloat16 ulp (float32: 1e-5) of each
+    element plus 1e-5 of the tensor's largest magnitude, g_scale within
+    1e-5 of its largest, g_bias 0: sums of up to 25 088 terms in another
+    order (on an H100 the excess over the ulp stayed under 1.2e-7 of the
+    largest, g_scale under 4.2e-7, at every case here)."""
+    for g, w in (got[0], want[0]), (got[3], want[3]):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        w = w.float()
+        ulp = 2 ** -7 if g.dtype == torch.bfloat16 else 1e-5
+        bound = ulp * w.abs() + 1e-5 * float(w.abs().max())
+        assert bool(((g.float() - w).abs() <= bound).all()), float(
+            ((g.float() - w).abs() - ulp * w.abs()).max()
+            / w.abs().max())
+    _within(got[1], want[1], 1e-5)
+    assert not got[2].any()
+
+
+@pytest.mark.parametrize("zero_params", [True, False])
+@pytest.mark.parametrize("shape,groups,tiling,dtype", SECOND_ORDER_CASES)
+def test_fused_norm_second_order_kernel_equals_closed_form(
+        shape, groups, tiling, dtype, zero_params):
+    args = _second_order_inputs(shape, groups, dtype, zero_params)
+    if tiling is not None:
+        tiling = tiling._replace(smem_bytes=fn._smem_bytes(
+            shape[2], tiling.resident_rows, args[0].element_size(), 3))
+    before = fn._launch_second_order.launches
+    got = fn._launch_second_order(*args, groups, 0.2, tiling=tiling)
+    torch.cuda.synchronize()
+    assert fn._launch_second_order.launches == before + 1
+    _second_order_within(
+        got, fn.group_norm_act_bwd_vjp_plain(*args, groups, 0.2))
+
+
+def test_fused_norm_second_order_kernel_captures_and_replays():
+    """Captured in a CUDA graph, the kernel (and its fold) replays on new
+    inputs copied into the captured ones, and repeats bit for bit."""
+    shape, groups = (4, 3136, 128), 32
+    static = _second_order_inputs(shape, groups, torch.bfloat16, False)
+    fn._launch_second_order(*static, groups, 0.2)  # built, warmed
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn._launch_second_order(*static, groups, 0.2)
+    for seed in (5, 6):
+        torch.manual_seed(seed)
+        for t in (static[0], static[5], static[6]):
+            t.copy_(torch.randn_like(t, dtype=torch.float32))
+        _, mean, rstd = fn._launch_fwd(static[0], static[1], static[2],
+                                       groups, 0.2, 1e-6)
+        static[3].copy_(mean)
+        static[4].copy_(rstd)
+        graph.replay()
+        torch.cuda.synchronize()
+        first = [t.clone() for t in out]
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, out))
+        _second_order_within(
+            out, fn.group_norm_act_bwd_vjp_plain(*static, groups, 0.2))
+
+
+def test_fused_norm_second_order_launcher_rejects_what_it_does_not_take():
+    args = list(_second_order_inputs((2, 16, 64), 32, torch.float32, True))
+    bad = {5: args[5].bfloat16(), 6: args[6][:, ::2],
+           7: args[7].double(), 8: args[8][:32]}
+    for index, value in bad.items():
+        wrong = list(args)
+        wrong[index] = value
+        with pytest.raises((TypeError, ValueError)):
+            fn._launch_second_order(*wrong, 32, 0.2)
+    t = fn.norm_tiling(2, 16, 64, torch.float32, "second_order")
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fn._launch_second_order(*args, 32, 0.2, tiling=t._replace(
+            smem_bytes=t.smem_bytes - 16))
+
+
 def test_fused_norm_second_order_through_the_kernels():
-    """The gradient penalty's ∂/∂scale through the kernels (and the
-    composite second order) equals autograd through the plain forward,
-    float32, rtol 1e-3."""
+    """The gradient penalty's ∂/∂scale through the kernels (the second
+    order by its own kernel, launched once) equals autograd through the
+    plain forward, float32, rtol 1e-3."""
     b, c, h = 2, 64, 8
     x, scale, bias, _ = _norm_inputs((b, h, h, c), torch.float32)
     x = x.permute(0, 3, 1, 2)  # NCHW in channels_last memory
@@ -361,10 +472,11 @@ def test_fused_norm_second_order_through_the_kernels():
         y, _, _ = fn.group_norm_act_fwd_plain(rows, s, bias, 32, 0.2, 1e-6)
         return y.view(b, h, h, c).permute(0, 3, 1, 2)
 
-    before = fn._launch_bwd.launches
+    before = fn._launch_bwd.launches, fn._launch_second_order.launches
     got = penalty(lambda xi, s: fn.group_norm_act(
         xi, s, bias, groups=32, negative_slope=0.2))
-    assert fn._launch_bwd.launches >= before + 2
+    assert fn._launch_bwd.launches >= before[0] + 2
+    assert fn._launch_second_order.launches == before[1] + 1
     torch.testing.assert_close(got, penalty(plain), rtol=1e-3, atol=1e-6)
 
 

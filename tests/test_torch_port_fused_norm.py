@@ -13,7 +13,15 @@ own test of the same quantity where it has one:
   atol 1e-5;
 * the gradient penalty's second order: value rtol 1e-4, gradient rtol
   1e-3, atol 1e-6;
-* a bfloat16 forward against the float32 plain version: 0.05.
+* a bfloat16 forward against the float32 plain version: 0.05;
+* the second order's closed form against ``torch.func.vjp`` of the
+  composite: float64 rtol 1e-9 (the same algebra, rounded otherwise);
+  bfloat16 inputs (float32 inside both, outputs in bfloat16): g_dy one
+  bfloat16 ulp (2⁻⁷) of each element plus 1e-5 of the largest, g_x the
+  same plus 4e-3 of the largest (the composite's own float32 rounding:
+  its g_x strays up to 1.9e-3 of the largest from float64 where the
+  closed form stays within a bfloat16 ulp, in 120 draws of these
+  shapes), g_scale within 1e-5 of its largest.
 """
 
 import functools
@@ -153,6 +161,123 @@ def test_gradient_penalty_second_order_matches_jax():
                                atol=1e-6)
 
 
+def _composite_second_order(x, scale, bias, dy, cotangents, groups, slope,
+                            eps=1e-6):
+    """``torch.func.vjp`` of the backward map, mean and rstd recomputed
+    from x: the composite the closed form stands for."""
+    def whole(x, scale, bias, dy):
+        mean, rstd = fn._group_stats(x, groups, eps)
+        return fn.group_norm_act_bwd_plain(x, scale, bias, mean, rstd, dy,
+                                           groups, slope)
+
+    _, vjp = torch.func.vjp(whole, x, scale, bias, dy)
+    return vjp(cotangents)
+
+
+@pytest.mark.parametrize("zero_params", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("groups,channels", [(1, 64), (4, 64), (32, 64),
+                                             (1, 96), (4, 96), (32, 96)])
+@pytest.mark.parametrize("slope", [0.0, 0.2])
+def test_second_order_closed_form_matches_the_composite_vjp(
+        slope, groups, channels, dtype, zero_params):
+    """(g_x, g_scale, g_bias, g_dy) of ``group_norm_act_bwd_vjp_plain``
+    against ``torch.func.vjp`` of ``group_norm_act_bwd_plain``, the
+    penalty's cotangents (zero g_dscale and g_dbias) and nonzero ones."""
+    gen = torch.Generator().manual_seed(groups * channels)
+    shape = (2, 12, channels)
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+
+    def draw(size, scale=1.0, shift=0.0, to=dtype):
+        return (shift + scale * torch.randn(size, generator=gen,
+                                            dtype=torch.float64)).to(to)
+
+    x, dy, g_dx = draw(shape, shift=0.5), draw(shape), draw(shape)
+    scale, bias = draw(channels, 0.1, 1.0, wide), draw(channels, 0.1, 0.0, wide)
+    g_dscale, g_dbias = ((torch.zeros(channels, dtype=wide),) * 2
+                         if zero_params else
+                         (draw(channels, to=wide), draw(channels, to=wide)))
+    mean, rstd = fn._group_stats(x, groups, 1e-6)
+    got = fn.group_norm_act_bwd_vjp_plain(x, scale, bias, mean, rstd, dy,
+                                          g_dx, g_dscale, g_dbias, groups,
+                                          slope)
+    want = _composite_second_order(x, scale, bias, dy,
+                                   (g_dx, g_dscale, g_dbias), groups, slope)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    assert not got[2].any()
+    if dtype == torch.float64:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-9,
+                                       atol=1e-12 * float(w.abs().max()))
+        return
+    for g, w, atol in (got[0], want[0], 4e-3), (got[3], want[3], 1e-5):
+        w = w.float()
+        bound = 2 ** -7 * w.abs() + atol * float(w.abs().max())
+        assert bool(((g.float() - w).abs() <= bound).all())
+    _close(got[1].numpy(), want[1].numpy(), 1e-5)
+
+
+def test_second_order_on_the_cpu_runs_the_closed_form(monkeypatch):
+    """The penalty's outer gradient through ``group_norm_act`` on CPU
+    tensors calls ``group_norm_act_bwd_vjp_plain`` once, launches no
+    kernel, and copies (and counts) a cotangent of dx that is not
+    contiguous."""
+    calls = []
+
+    def spy(*args):
+        calls.append(args[6].is_contiguous())
+        return closed_form(*args)
+
+    closed_form = fn.group_norm_act_bwd_vjp_plain
+    monkeypatch.setattr(fn, "group_norm_act_bwd_vjp_plain", spy)
+    launches = (fn._launch_fwd.launches, fn._launch_bwd.launches,
+                fn._launch_second_order.launches)
+    x, scale, bias = _inputs((2, 4, 4, 64), 6)
+    ts = torch.from_numpy(scale).requires_grad_()
+    tx = _nchw(x).requires_grad_()
+    y = fn.group_norm_act(tx, ts, torch.from_numpy(bias), groups=32,
+                          negative_slope=0.2)
+    (g,) = torch.autograd.grad(y.square().sum(), tx, create_graph=True)
+    torch.autograd.grad(g.square().sum(), ts)
+    assert calls == [True]
+    copies = fn.group_norm_act.layout_copies
+    dx, _, _ = fn._GroupNormActBwd.apply(
+        tx.detach().permute(0, 2, 3, 1).reshape(2, 16, 64), ts,
+        torch.from_numpy(bias), torch.zeros(2, 32), torch.ones(2, 32),
+        torch.ones(2, 16, 64, requires_grad=True), 32, 0.2)
+    torch.autograd.grad(dx, ts, torch.ones(2, 64, 16).mT)
+    assert calls == [True, True]
+    assert fn.group_norm_act.layout_copies == copies + 1
+    assert (fn._launch_fwd.launches, fn._launch_bwd.launches,
+            fn._launch_second_order.launches) == launches
+
+
+@pytest.mark.parametrize("by", ["grad", "backward"])
+def test_norm_is_differentiable_exactly_twice(by):
+    """The penalty's second order, taken with ``create_graph``, equals the
+    one taken without; differentiating it once more raises, by
+    ``torch.autograd.grad`` for a parameter or by ``backward``."""
+    x, scale, bias = _inputs((2, 4, 4, 64), 7)
+    ts = torch.from_numpy(scale).requires_grad_()
+    tx = _nchw(x).requires_grad_()
+
+    def second_order(create_graph):
+        y = fn.group_norm_act(tx, ts, torch.from_numpy(bias), groups=32,
+                              negative_slope=0.2)
+        (g,) = torch.autograd.grad(y.square().sum(), tx, create_graph=True)
+        return torch.autograd.grad(g.square().sum(), ts,
+                                   create_graph=create_graph)[0]
+
+    g2 = second_order(True)
+    assert torch.equal(g2.detach(), second_order(False))
+    with pytest.raises(RuntimeError, match="differentiable twice"):
+        if by == "grad":
+            torch.autograd.grad(g2.sum(), ts)
+        else:
+            g2.sum().backward()
+
+
 def test_bf16_forward_close_to_f32_plain():
     shape = (2, 8, 8, 64)
     x, scale, bias = _inputs(shape, 4)
@@ -225,6 +350,11 @@ def test_no_fallback_off_the_cpu():
     ones, zeros = torch.ones(8), torch.zeros(8)
     fn.group_norm_act(x, ones, zeros, groups=4).sum().backward()
     assert (fn._launch_fwd.launches, fn._launch_bwd.launches) == (fwd, bwd)
+    with pytest.raises(ValueError, match="CUDA"):
+        rows = torch.zeros(2, 16, 8)
+        fn._launch_second_order(rows, ones, zeros, torch.zeros(2, 4),
+                                torch.ones(2, 4), rows, rows, zeros, zeros,
+                                4, 0.2)
     meta = torch.empty(2, 8, 4, 4, device="meta").contiguous(
         memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="CUDA"):
@@ -275,7 +405,8 @@ CUDA_NORM_CASES = [(3, 64, 64), (2, 49, 1024), (4, 100, 8), (2, 300, 384)]
 def test_norm_tiling_covers_every_row_once(shape, dtype):
     b, hw, c = shape
     elem = torch.empty((), dtype=dtype).element_size()
-    for direction, tensors in (("fwd", 1), ("bwd", 2)):
+    for direction, tensors, outputs in (("fwd", 1, 1), ("bwd", 2, 1),
+                                        ("second_order", 3, 2)):
         t = fn.norm_tiling(b, hw, c, dtype, direction)
         assert t == fn.norm_tiling(b, hw, c, dtype, direction)
         assert t.cluster in (1, 2, 4, 8, 16)
@@ -290,8 +421,8 @@ def test_norm_tiling_covers_every_row_once(shape, dtype):
         resident = t.resident_rows == t.rows_per_block
         units = fn.norm_traffic_bytes(b, hw, c, dtype, direction, t) / (
             b * hw * c * elem)
-        assert (units == tensors + 1) == resident
-        assert units <= 2 * tensors + 1
+        assert (units == tensors + outputs) == resident
+        assert units <= 2 * tensors + outputs
         if shape in FLAGSHIP_NORM_SHAPES and dtype == torch.bfloat16 \
                 and direction == "fwd":
             assert resident, t
@@ -312,6 +443,14 @@ def test_norm_tiling_streams_what_the_cluster_cannot_hold():
     assert traffic[0] == 2 * 64 * 4 * (3 * 12544 + 2 * streamed)
     bf16 = fn.norm_tiling(2, 12544, 64, torch.bfloat16, "bwd")
     assert bf16.cluster == 16 and bf16.resident_rows == bf16.rows_per_block
+    # The second order's three sources at the same shape: 558 of each
+    # block's 784 rows resident, the rest read twice.
+    second = fn.norm_tiling(2, 12544, 64, torch.bfloat16, "second_order")
+    assert (second.cluster, second.rows_per_block, second.resident_rows) == (
+        16, 784, 558)
+    assert fn.norm_traffic_bytes(
+        2, 12544, 64, torch.bfloat16, "second_order", second) == (
+        2 * 64 * 2 * (5 * 12544 + 3 * 16 * (784 - 558)))
     with pytest.raises(ValueError, match="direction"):
         fn.norm_tiling(2, 16, 8, torch.float32, "both")
 

@@ -316,6 +316,8 @@ def test_counters_read_the_attributes_they_name(monkeypatch):
                  (fused_norm._launch_fwd, "launches"),
              "fused_norm._launch_bwd.launches":
                  (fused_norm._launch_bwd, "launches"),
+             "fused_norm._launch_second_order.launches":
+                 (fused_norm._launch_second_order, "launches"),
              "group_norm_act.layout_copies":
                  (fused_norm.group_norm_act, "layout_copies"),
              "density_maps.launches": (density_maps, "launches"),
