@@ -232,6 +232,8 @@ os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from srgan_tpu_torch.utils import trace  # noqa: E402
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 8
 TIMED_STEPS = 20
@@ -364,6 +366,29 @@ if (crowd_norm_launches(4) != tuple(NORM_LAUNCHES_PER_STEP.values())
     raise AssertionError("crowd_norm_launches(4) or "
                          "crowd_launches_per_validation(4) is not the "
                          "flagship's")
+# The program's launch counters (``srgan_tpu_torch/utils/trace.py``) by
+# the names this script reports them under; the samplers and the norm
+# are the kernels of a training step.
+LAUNCH_COUNTERS = {
+    "extract_patches": "extract_patches.launches",
+    "extract_rescaled_patches": "extract_rescaled_patches.launches",
+    "group_norm_act_fwd": "fused_norm._launch_fwd.launches",
+    "group_norm_act_bwd": "fused_norm._launch_bwd.launches",
+    "group_norm_act_second_order": "fused_norm._launch_second_order.launches",
+    "density_maps": "density_maps.launches"}
+STEP_KERNELS = tuple(LAUNCH_COUNTERS)[:5]
+NORM_KERNELS = STEP_KERNELS[2:]
+
+
+def counted_since(before: dict, names=STEP_KERNELS) -> dict:
+    """Each of ``names`` (a key of ``LAUNCH_COUNTERS`` or a counter's own
+    name) counted since ``before``, a snapshot of ``trace.counters()``
+    (a counter declared since counts from 0)."""
+    now = trace.counters()
+    return {k: now[LAUNCH_COUNTERS.get(k, k)]
+            - before.get(LAUNCH_COUNTERS.get(k, k), 0) for k in names}
+
+
 # The raw database of the preprocessing phase: images per split, and the
 # raw image size (UCF-QNRF's images are photographs of about this size and
 # larger; resize mode halves these).
@@ -920,10 +945,11 @@ def check_second_order_kernel(dev, gen):
         _, mean, rstd = fn._launch_fwd(x, scale, bias, groups, slope, 1e-6)
         args = (x, scale, bias, mean, rstd, dy, g_dx, g_dscale, g_dbias,
                 groups, slope)
-        before = fn._launch_second_order.launches
+        before = trace.counters()
         got = fn._launch_second_order(*args)
         torch.cuda.synchronize()
-        if fn._launch_second_order.launches != before + 1:
+        if counted_since(before, ["group_norm_act_second_order"]) != {
+                "group_norm_act_second_order": 1}:
             raise AssertionError("the second-order launcher did not count "
                                  "its launch")
         want = fn.group_norm_act_bwd_vjp_plain(*args)
@@ -1216,10 +1242,9 @@ def check_second_order(dev):
         (grad,) = torch.autograd.grad(value, s)
         return float(value.detach()), grad
 
-    counters = (fn._launch_fwd, fn._launch_bwd, fn._launch_second_order)
-    before = [c.launches for c in counters]
+    before = trace.counters()
     got_v, got_g = penalty(kernel)
-    launched = tuple(c.launches - n for c, n in zip(counters, before))
+    launched = tuple(counted_since(before, NORM_KERNELS).values())
     want_v, want_g = penalty(plain)
     if launched[0] < 1 or launched[1] < 2 or launched[2] != 1:
         raise AssertionError(f"second order: kernels launched {launched} "
@@ -1247,15 +1272,13 @@ def check_small_step(dev, norm_impl, factors=(), **over):
     the tiny models' one-channel GroupNorms amplify the two devices'
     different sum orders."""
     from srgan_tpu_torch import CrowdExperiment, Settings
-    from srgan_tpu_torch.ops import fused_norm as fn
-    from srgan_tpu_torch.ops.patches import extract_rescaled_patches
     from srgan_tpu_torch.train import init_train_state, set_float32_precision
     set_float32_precision()
     settings = Settings(norm_impl=norm_impl, crowd_rescale_factors=factors,
                         **dict(TINY, **over))
     what = ", ".join([norm_impl, f"factors {factors}"]
                      + [f"{k} {v}" for k, v in over.items()])
-    launches = (fn._launch_fwd.launches, extract_rescaled_patches.launches)
+    before = trace.counters()
     results = []
     args = None
     rng = np.random.default_rng(5)
@@ -1301,8 +1324,9 @@ def check_small_step(dev, norm_impl, factors=(), **over):
             raise AssertionError(f"small step ({what}): {k} is "
                                  f"{gpu_metrics[k]} on the card, {v} on the "
                                  f"CPU")
-    launches = (fn._launch_fwd.launches - launches[0],
-                extract_rescaled_patches.launches - launches[1])
+    launches = tuple(counted_since(before, ["group_norm_act_fwd",
+                                            "extract_rescaled_patches"]
+                                   ).values())
     if ((launches[0] > 0) != (norm_impl == "pallas")
             or launches[1] != (3 if factors else 0)):
         raise AssertionError(f"small step ({what}): (norm forward, rescale) "
@@ -1340,7 +1364,6 @@ def check_small_app_step(dev, app, norm_impl="xla", dnn_only=False):
     backward and second order), and 3 forwards for each of the 2
     prediction chunks."""
     from srgan_tpu_torch import Settings
-    from srgan_tpu_torch.ops import fused_norm as fn
     from srgan_tpu_torch.train import init_train_state, set_float32_precision
     set_float32_precision()
     settings = Settings(norm_impl=norm_impl, dnn_only=dnn_only, **APP_TINY)
@@ -1350,8 +1373,7 @@ def check_small_app_step(dev, app, norm_impl="xla", dnn_only=False):
                  alpha=rng.uniform(0, 1, b))
     results = []
     for device in ("cpu", dev):
-        counters = (fn._launch_fwd, fn._launch_bwd, fn._launch_second_order)
-        before = [c.launches for c in counters]
+        before = trace.counters()
         exp = _app_class(app)(settings, device=device)
         exp.dataset_setup()
         exp.models = exp.model_setup()
@@ -1365,7 +1387,7 @@ def check_small_app_step(dev, app, norm_impl="xla", dnn_only=False):
                    for k, v in draws.items()}
             _, metrics = exp._train_step(exp.state, *batch, None, **fed)
         preds = exp.predict(exp.validation_dataset)
-        launches = tuple(c.launches - n for c, n in zip(counters, before))
+        launches = tuple(counted_since(before, NORM_KERNELS).values())
         results.append(({k: float(v) for k, v in metrics.items()}, preds,
                          launches))
     (cpu_metrics, cpu_preds, _), (gpu_metrics, gpu_preds, launches) = results
@@ -1469,9 +1491,6 @@ def train_main_path(settings, dev, card: str) -> tuple:
     ``train()``, by kernel table name, and {ms_per_step, peak_gib,
     busy_share}."""
     from srgan_tpu_torch import CrowdExperiment
-    from srgan_tpu_torch.ops import fused_norm as fn
-    from srgan_tpu_torch.ops.patches import (extract_patches,
-                                             extract_rescaled_patches)
     # An earlier run's experiment, held by reference cycles, must not
     # count in this one's peak.
     gc.collect()
@@ -1482,19 +1501,13 @@ def train_main_path(settings, dev, card: str) -> tuple:
     rescale = bool(settings.crowd_rescale_factors)
     what = f"{impl}{', rescale' if rescale else ''}"
     torch.cuda.reset_peak_memory_stats()
-    counters = {"extract_patches": extract_patches,
-                "extract_rescaled_patches": extract_rescaled_patches,
-                "group_norm_act_fwd": fn._launch_fwd,
-                "group_norm_act_bwd": fn._launch_bwd,
-                "group_norm_act_second_order": fn._launch_second_order}
-    for counter in counters.values():
-        counter.launches = 0
-    fn.group_norm_act.layout_copies = 0
+    before = trace.counters()
     t0 = time.perf_counter()
     state = exp.train()
     torch.cuda.synchronize()
-    launches = {name: c.launches for name, c in counters.items()}
-    copies = fn.group_norm_act.layout_copies
+    launches = counted_since(before)
+    copies = counted_since(before, ["group_norm_act.layout_copies"])[
+        "group_norm_act.layout_copies"]
     validations = steps // VALIDATION_PERIOD
     log(f"train ({what}): {steps} steps and {validations} validation passes "
         f"through CrowdExperiment.train() in "
@@ -1576,7 +1589,6 @@ def app_train_main_path(app, settings, dev, card: str) -> dict:
     between synchronizations: ms/step, examples/s and the peak of
     allocated memory; and ``PROFILED_STEPS`` under ``torch.profiler``:
     the card's busy ms a step. Returns the timing line's numbers."""
-    from srgan_tpu_torch.ops import fused_norm as fn
     exp = _app_class(app)(settings, device=dev)
     steps = settings.steps_to_run
     period = settings.validation_step_period
@@ -1588,15 +1600,11 @@ def app_train_main_path(app, settings, dev, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    counters = {"group_norm_act_fwd": fn._launch_fwd,
-                "group_norm_act_bwd": fn._launch_bwd,
-                "group_norm_act_second_order": fn._launch_second_order}
-    for counter in counters.values():
-        counter.launches = 0
+    before = trace.counters()
     t0 = time.perf_counter()
     state = exp.train()
     torch.cuda.synchronize()
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = counted_since(before, NORM_KERNELS)
     validations = steps // period
     log(f"train {what}: {steps} steps and {validations} validation passes "
         f"through train() in {time.perf_counter() - t0:.1f} s (data set-up "
@@ -1614,7 +1622,7 @@ def app_train_main_path(app, settings, dev, card: str) -> dict:
                 "group_norm_act_bwd": per_step[1] * steps,
                 "group_norm_act_second_order": per_step[2] * steps}
     else:
-        want = {name: 0 for name in counters}
+        want = {name: 0 for name in NORM_KERNELS}
     if launches != want:
         raise AssertionError(f"{what}: norm kernels launched {launches}, "
                              f"not {want}")
@@ -1760,14 +1768,14 @@ def preprocess_main_path(dev, root: str) -> tuple:
 
     from srgan_tpu_torch.data.crowd import CrowdDatabase
     from srgan_tpu_torch.data.crowd import main as preprocess
-    from srgan_tpu_torch.ops.density import density_maps, density_maps_plain
+    from srgan_tpu_torch.ops.density import density_maps_plain
     shutil.rmtree(root, ignore_errors=True)
     t0 = time.perf_counter()
     heads = synthesize_raw_database(os.path.join(root, "raw"))
     t_write = time.perf_counter() - t0
     db_dir = os.path.join(root, "db")
     images = sum(RAW_SPLITS.values())
-    density_maps.launches = 0
+    before = trace.counters()
     t0 = time.perf_counter()
     for split in RAW_SPLITS:
         out = io.StringIO()
@@ -1781,7 +1789,7 @@ def preprocess_main_path(dev, root: str) -> tuple:
         log("preprocess: " + out.getvalue().strip())
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = density_maps.launches
+    launches = counted_since(before, ["density_maps"])["density_maps"]
     if launches != images:
         raise AssertionError(f"density kernel launched {launches} times for "
                              f"{images} images")
@@ -1875,28 +1883,17 @@ def cli_main_path(dev, db_dir: str, logs: str) -> dict:
     resume to step 6; evaluate only, exporting the density maps. Returns
     the kernel launches of the first run."""
     from srgan_tpu_torch import CrowdExperiment, Settings, checkpoint
-    from srgan_tpu_torch.ops import fused_norm as fn
-    from srgan_tpu_torch.ops.density import density_maps
-    from srgan_tpu_torch.ops.patches import (extract_patches,
-                                             extract_rescaled_patches)
     from srgan_tpu_torch.presets import apply_preset
     flags = dict(norm_impl="pallas", crowd_database_path=db_dir,
                  logs_directory=logs, trial_name="chip_smoke_cli",
                  summary_step_period=1, seed=0)
     base = ["crowd", "--preset", "crowd_flagship"] + [
         f"--{k}={v}" for k, v in flags.items()]
-    counters = {"extract_patches": extract_patches,
-                "extract_rescaled_patches": extract_rescaled_patches,
-                "group_norm_act_fwd": fn._launch_fwd,
-                "group_norm_act_bwd": fn._launch_bwd,
-                "group_norm_act_second_order": fn._launch_second_order,
-                "density_maps": density_maps}
-    for counter in counters.values():
-        counter.launches = 0
+    before = trace.counters()
     t0 = time.perf_counter()
     first = _cli(base + ["--steps_to_run", "4", "--save_step_period", "2",
                          "--validation_step_period", "4"])
-    launches = {name: c.launches for name, c in counters.items()}
+    launches = counted_since(before, LAUNCH_COUNTERS)
     trial = first["trial_directory"]
     _finite_metrics("train", first)
     root = os.path.join(trial, "checkpoints")
@@ -1995,7 +1992,6 @@ def age_cli_main_path(dev, logs: str) -> None:
     Each prints one JSON line of finite validation and test metrics."""
     from srgan_tpu_torch import AgeExperiment, Settings
     from srgan_tpu_torch.data.age import main as age_main
-    from srgan_tpu_torch.ops import fused_norm as fn
     raw = os.path.join(logs, "imdb_wiki")
     mat = synthesize_imdb_wiki(raw)
     npz = os.path.join(logs, "age.npz")
@@ -2019,12 +2015,10 @@ def age_cli_main_path(dev, logs: str) -> None:
                  trial_name="chip_smoke_age_cli", summary_step_period=1,
                  seed=0, **APP_CLI_MODEL)
     base = ["age"] + [f"--{k}={v}" for k, v in flags.items()]
-    counters = (fn._launch_fwd, fn._launch_bwd, fn._launch_second_order)
-    for counter in counters:
-        counter.launches = 0
+    before = trace.counters()
     first = _cli(base + ["--steps_to_run", "4", "--save_step_period", "2",
                          "--validation_step_period", "4"])
-    launches = tuple(c.launches for c in counters)
+    launches = tuple(counted_since(before, NORM_KERNELS).values())
     _finite_metrics("age train", first, REGRESSION_METRICS)
     trial = first["trial_directory"]
     root = os.path.join(trial, "checkpoints")
@@ -2070,13 +2064,14 @@ def bandwidth_main_path(entry: dict) -> None:
     import io
 
     from srgan_tpu_torch.tools import norm_bandwidth_bench as bw
-    bw.copy.launches = 0
+    before = trace.counters()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = bw.main(["--reps", "20"])
     if rc != 0:
         raise AssertionError(f"the bandwidth tool returned {rc}")
-    entry["launches"] = bw.copy.launches
+    entry["launches"] = counted_since(before, ["copy.launches"])[
+        "copy.launches"]
     records = [json.loads(line) for line in out.getvalue().splitlines()]
     for record in records:
         log("bandwidth: " + json.dumps(record))
@@ -2157,16 +2152,7 @@ def tier_train_main_path(name, settings, dev, card: str) -> dict:
     from srgan_tpu_torch import CrowdExperiment
     from srgan_tpu_torch.apps import crowd as crowd_app
     from srgan_tpu_torch.data.window import HBMWindow
-    from srgan_tpu_torch.ops import fused_norm as fn
-    from srgan_tpu_torch.ops.patches import (extract_patches,
-                                             extract_rescaled_patches)
-    counters = {"extract_patches": extract_patches,
-                "extract_rescaled_patches": extract_rescaled_patches,
-                "group_norm_act_fwd": fn._launch_fwd,
-                "group_norm_act_bwd": fn._launch_bwd,
-                "group_norm_act_second_order": fn._launch_second_order}
-    for counter in counters.values():
-        counter.launches = 0
+    before = trace.counters()
     channels, apply_s = [], []
     real_extract, real_apply = crowd_app.extract_patches, \
         HBMWindow._apply_staged
@@ -2191,7 +2177,7 @@ def tier_train_main_path(name, settings, dev, card: str) -> dict:
             warnings.simplefilter("always")
             state = exp.train()
         torch.cuda.synchronize()
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = counted_since(before)
         log(f"tier {name}: {steps} steps and {steps // VALIDATION_PERIOD} "
             f"validation passes through CrowdExperiment.train() in "
             f"{time.perf_counter() - t0:.1f} s (data set-up included); "
@@ -2281,11 +2267,9 @@ def aux_cli_main_path(dev, raw_root: str, root: str) -> None:
 
     from srgan_tpu_torch.data.crowd import CrowdDatabase
     from srgan_tpu_torch.data.crowd import main as preprocess
-    from srgan_tpu_torch.ops import fused_norm as fn
-    from srgan_tpu_torch.ops.density import density_maps
     shutil.rmtree(root, ignore_errors=True)
     db_dir = os.path.join(root, "db")
-    density_maps.launches = 0
+    before = trace.counters()
     t0 = time.perf_counter()
     for split in RAW_SPLITS:
         out = io.StringIO()
@@ -2297,16 +2281,16 @@ def aux_cli_main_path(dev, raw_root: str, root: str) -> None:
         if rc != 0:
             raise AssertionError(f"preprocessing {split} returned {rc}")
     images = sum(RAW_SPLITS.values())
-    if density_maps.launches != images:
-        raise AssertionError(f"density kernel launched "
-                             f"{density_maps.launches} times for {images}")
+    density = counted_since(before, ["density_maps"])["density_maps"]
+    if density != images:
+        raise AssertionError(f"density kernel launched {density} times "
+                             f"for {images}")
     labeled = CrowdDatabase.load(os.path.join(db_dir, "labeled.npz"))
     if labeled.label_type != "iknn" or labeled.aux_maps is None or \
             not np.isfinite(labeled.aux_maps).all():
         raise AssertionError("the iKNN database has no finite aux maps")
     log(f"aux cli preprocess: {images} images with --label-type iknn in "
-        f"{time.perf_counter() - t0:.2f} s; density launches "
-        f"{density_maps.launches}")
+        f"{time.perf_counter() - t0:.2f} s; density launches {density}")
     base = ["crowd", "--preset", "crowd_flagship", "--norm_impl=pallas",
             f"--crowd_database_path={db_dir}",
             f"--logs_directory={os.path.join(root, 'logs')}",
@@ -2314,9 +2298,7 @@ def aux_cli_main_path(dev, raw_root: str, root: str) -> None:
             "--seed=0", "--crowd_label_type", "iknn", "--crowd_model",
             "jointdcnn", "--crowd_hbm_window", "8", "--crowd_window_slices",
             "4", "--crowd_window_refresh_period", "1"]
-    counters = (fn._launch_fwd, fn._launch_bwd, fn._launch_second_order)
-    for counter in counters:
-        counter.launches = 0
+    before = trace.counters()
     t0 = time.perf_counter()
     first = _cli(base + ["--steps_to_run", "4", "--save_step_period", "2",
                          "--validation_step_period", "4"])
@@ -2327,7 +2309,7 @@ def aux_cli_main_path(dev, raw_root: str, root: str) -> None:
     fwd, bwd, second = crowd_norm_launches(D_NORMS["jointdcnn"])
     want = (4 * fwd + crowd_launches_per_validation(6)["group_norm_act_fwd"]
             + 6 * (2 + 1), 4 * bwd, 4 * second)
-    got = tuple(c.launches for c in counters)
+    got = tuple(counted_since(before, NORM_KERNELS).values())
     if got != want:
         raise AssertionError(f"aux cli: norm launches {got}, not {want}")
     trial = first["trial_directory"]
@@ -2373,17 +2355,6 @@ DP_DRAWS_CHECKED = 200
 DP_REDUCE_REPEATS = 5
 
 
-def _launch_counters():
-    from srgan_tpu_torch.ops import fused_norm as fn
-    from srgan_tpu_torch.ops.patches import (extract_patches,
-                                             extract_rescaled_patches)
-    return {"extract_patches": extract_patches,
-            "extract_rescaled_patches": extract_rescaled_patches,
-            "group_norm_act_fwd": fn._launch_fwd,
-            "group_norm_act_bwd": fn._launch_bwd,
-            "group_norm_act_second_order": fn._launch_second_order}
-
-
 def _gradient_reduce_ms(experiment) -> float:
     """The host time of one step's three gradient averages (D, G, the
     DNN: ``average_gradients`` on their last gradients), the card
@@ -2404,19 +2375,16 @@ def _gradient_reduce_ms(experiment) -> float:
 
 
 def dp_train_action(experiment, timed_steps: int) -> dict:
-    """A rank of phase 13: ``train()`` with its launches counted (zeroed
+    """A rank of phase 13: ``train()`` with its launches counted (from
     just before), a sharded window's buffers checked against the host rows
     of its ids, then ``timed_steps`` more steps timed (ms/step between
     synchronizations), the peak allocated memory and the gradient
     all-reduce's ms a step."""
-    counters = _launch_counters()
-    for counter in counters.values():
-        counter.launches = 0
+    before = trace.counters()
     torch.cuda.reset_peak_memory_stats()
     state = experiment.train()
     torch.cuda.synchronize()
-    out = {"launches": {k: c.launches for k, c in counters.items()},
-           "step": state.step}
+    out = {"launches": counted_since(before), "step": state.step}
     host = {"labeled_images": experiment.labeled_db.images,
             "labeled_density": experiment._stacked_labels(),
             "unlabeled_images": experiment.unlabeled_db.images}
@@ -2764,7 +2732,6 @@ def dispatch_correctness(dev, norm_impl, factors=()) -> dict:
     differ; one capture and two replays."""
     from srgan_tpu_torch import Settings
     from srgan_tpu_torch.train import set_float32_precision
-    from srgan_tpu_torch.utils.cuda_graph import TrainChunk
     from srgan_tpu_torch.utils.mixture import sample_offset_normal
     set_float32_precision()
     settings = Settings(norm_impl=norm_impl, crowd_rescale_factors=factors,
@@ -2784,7 +2751,7 @@ def dispatch_correctness(dev, norm_impl, factors=()) -> dict:
                 for _ in range(steps)]
         exp = _manual_crowd(settings, dev)
         args = exp._patch_args_stream()
-        counts = (TrainChunk.captures, TrainChunk.replays)
+        before = trace.counters()
         got, z = [], []
         shape = (settings.batch_size, settings.latent_dimension)
         for _ in range(DISPATCH_CHUNKS):
@@ -2796,8 +2763,9 @@ def dispatch_correctness(dev, norm_impl, factors=()) -> dict:
                     for i in range(k)]
         got.append({n: v.cpu() for n, v in _single_step(exp, args).items()})
         torch.cuda.synchronize()
-        counts = (TrainChunk.captures - counts[0],
-                  TrainChunk.replays - counts[1])
+        counts = tuple(counted_since(before, ["TrainChunk.captures",
+                                              "TrainChunk.replays"]
+                                     ).values())
     finally:
         torch.backends.cudnn.deterministic = deterministic
     if counts != (1, DISPATCH_CHUNKS - 1):
@@ -2840,18 +2808,17 @@ def dispatch_correctness(dev, norm_impl, factors=()) -> dict:
 def dispatch_action(experiment) -> dict:
     """A run of phase 14 (b) (a rank's, or this process's): ``train()``
     with the kernels' launches and the chunk's captures and replays
-    counted, zeroed just before."""
-    from srgan_tpu_torch.utils.cuda_graph import TrainChunk
-    counters = _launch_counters()
-    for counter in counters.values():
-        counter.launches = 0
-    TrainChunk.captures = TrainChunk.replays = 0
+    counted from just before."""
+    before = trace.counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = experiment.train()
     torch.cuda.synchronize()
-    return {"launches": {k: c.launches for k, c in counters.items()},
-            "captures": TrainChunk.captures, "replays": TrainChunk.replays,
+    chunks = counted_since(before, ["TrainChunk.captures",
+                                    "TrainChunk.replays"])
+    return {"launches": counted_since(before),
+            "captures": chunks["TrainChunk.captures"],
+            "replays": chunks["TrainChunk.replays"],
             "step": state.step, "seconds": time.perf_counter() - t0,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
@@ -3240,17 +3207,15 @@ def _instrumented_step(experiment, stream) -> dict:
 
 def tp_flagship_action(experiment) -> dict:
     """Phase 15 (b) on a rank: ``train()`` with its launches counted
-    (zeroed just before), then ``TP_TIMED_STEPS`` timed steps (ms/step
+    (from just before), then ``TP_TIMED_STEPS`` timed steps (ms/step
     between synchronizations), one instrumented step and the peak
     allocated memory."""
-    counters = _launch_counters()
-    for counter in counters.values():
-        counter.launches = 0
+    before = trace.counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     state = experiment.train()
     torch.cuda.synchronize()
-    out = {"launches": {k: c.launches for k, c in counters.items()},
+    out = {"launches": counted_since(before),
            "step": state.step, "seconds": time.perf_counter() - t0}
     experiment.prepare_train_step()  # train() closed the inputs
     stream = (b for epoch in experiment.epoch_batch_iterators()
@@ -3579,14 +3544,12 @@ def tools_main_path(dev, logs: str, card: str) -> dict:
         f"lane-step ({dev}: {card}); MAEs {maes}")
 
     # (c) the window bench: refreshes, windows and launches
-    counters = _launch_counters()
-    for counter in counters.values():
-        counter.launches = 0
+    before = trace.counters()
     bench_args = window_bench.parse_args(WINDOW_BENCH + [
         "--db-root", os.path.join(logs, "window_db")])
     result, exp, settings = window_bench.run_bench(bench_args, dev)
     torch.cuda.synchronize()
-    launches = {k: c.launches for k, c in counters.items()}
+    launches = counted_since(before)
     steps = bench_args.warmup + bench_args.steps
     try:
         _check_window(exp, settings, steps)

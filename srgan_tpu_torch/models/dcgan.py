@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from srgan_tpu_torch.ops.fused_norm import FusedGroupNormAct
+from srgan_tpu_torch.utils import trace
 
 # Standard deviation of a unit normal truncated to [-2, 2]: flax divides
 # by it so that the truncated draw keeps the requested variance.
@@ -87,7 +88,6 @@ def _non_leaf(t: torch.Tensor) -> torch.Tensor:
 def _channels_last(t: torch.Tensor) -> torch.Tensor:
     if t.is_contiguous(memory_format=torch.channels_last):
         return t
-    conv.layout_copies += 1
     return t.contiguous(memory_format=torch.channels_last)
 
 
@@ -130,15 +130,15 @@ class _ConvBwd(torch.autograd.Function):
         [O, B, H', W']: a filter as large as the feature map, for which
         cuDNN has only its legacy non-tensor-core kernels. Here every
         call is one that a first-order step makes, on ``channels_last``
-        operands (each copy to it adds one to ``conv.layout_copies``).
+        operands.
         Every call keeps the layer's stride, padding and dilation.
         Differentiable torch calls throughout, so a third order holds.
         """
         dy, x, w = ctx.saved_tensors
         stride, padding, dilation = ctx.config
-        conv.second_order += 1
+        trace.count("conv.second_order")
         if dilation > 1:
-            conv.dilated_second_order += 1
+            trace.count("conv.dilated_second_order")
         want_dy, want_x, want_w = _engine_wants(ctx, 3)
         want_x = want_x and g_dw is not None
         want_w = want_w and g_dx is not None
@@ -200,9 +200,7 @@ def conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     second order of :class:`_ConvBwd`. ``conv.second_order`` counts the
     runs of that second order (the gradient penalty's, one a layer
     between the interpolates and the features), of which
-    ``conv.dilated_second_order`` those of a dilated layer;
-    ``conv.layout_copies`` counts the copies to ``channels_last`` it
-    made."""
+    ``conv.dilated_second_order`` those of a dilated layer."""
     if not torch.is_grad_enabled():
         return F.conv2d(x, weight, bias, stride=stride, padding=padding,
                         dilation=dilation)
@@ -210,9 +208,8 @@ def conv(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                           _non_leaf(bias), stride, padding, dilation)
 
 
-conv.second_order = 0
-conv.dilated_second_order = 0
-conv.layout_copies = 0
+trace.declare("conv.second_order")
+trace.declare("conv.dilated_second_order")
 
 
 class Conv(nn.Module):

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from srgan_tpu_torch.ops import _build
+from srgan_tpu_torch.utils import trace
 
 # Elements of one [B, J, H, W] temporary of the plain version.
 _PLAIN_ELEMENTS = 1 << 25
@@ -161,7 +162,7 @@ def density_maps(head_positions: torch.Tensor, head_counts: torch.Tensor,
     return _launch_density(head_positions, head_counts, sigma, h, w, plan)
 
 
-density_maps.launches = 0
+trace.declare("density_maps.launches")
 
 
 def _launch_density(head_positions: torch.Tensor, head_counts: torch.Tensor,
@@ -183,7 +184,7 @@ def _launch_density(head_positions: torch.Tensor, head_counts: torch.Tensor,
     if code != 0:
         raise RuntimeError(f"density kernel launch failed: "
                            f"{lib.srgan_cuda_error_string(code).decode()}")
-    density_maps.launches += 1
+    trace.count("density_maps.launches")
     return out
 
 

@@ -21,8 +21,7 @@ The port of ``srgan_tpu.ops.fused_norm`` (``Settings.norm_impl="pallas"``):
   example holds its rows in shared memory, so x (and dy, and the
   cotangent of dx) are read from device memory once. :func:`norm_tiling`
   chooses the cluster and what it holds. Each launch adds one to the
-  launcher's ``launches`` (a replay of a captured training chunk adds the
-  launches its capture made: ``utils/cuda_graph.py``).
+  counter ``fused_norm.<launcher>.launches`` (``utils/trace.py``).
 * Two ``torch.autograd.Function``s, the ``custom_vjp``-over-``custom_jvp``
   structure of JAX's ``_make_gn_act``: :class:`_GroupNormActFwd` runs the
   forward kernel, and its backward is :class:`_GroupNormActBwd`, which
@@ -53,6 +52,7 @@ import torch
 from torch import nn
 
 from srgan_tpu_torch.ops import _build
+from srgan_tpu_torch.utils import trace
 
 Tensor = torch.Tensor
 
@@ -391,11 +391,11 @@ def _launch_fwd(x: Tensor, scale: Tensor, bias: Tensor, groups: int,
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), _DTYPE_CODES[x.dtype], b, hw, c,
         groups, *t, negative_slope, eps, stream), "forward")
-    _launch_fwd.launches += 1
+    trace.count("fused_norm._launch_fwd.launches")
     return y, mean, rstd
 
 
-_launch_fwd.launches = 0
+trace.declare("fused_norm._launch_fwd.launches")
 
 
 def _launch_bwd(x: Tensor, scale: Tensor, bias: Tensor, mean: Tensor,
@@ -420,11 +420,11 @@ def _launch_bwd(x: Tensor, scale: Tensor, bias: Tensor, mean: Tensor,
         rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
         dbias.data_ptr(), sums.data_ptr(), _DTYPE_CODES[x.dtype], b, hw, c,
         groups, *t, negative_slope, stream), "backward")
-    _launch_bwd.launches += 1
+    trace.count("fused_norm._launch_bwd.launches")
     return dx, dscale, dbias
 
 
-_launch_bwd.launches = 0
+trace.declare("fused_norm._launch_bwd.launches")
 
 
 def _launch_second_order(x: Tensor, scale: Tensor, bias: Tensor,
@@ -457,11 +457,11 @@ def _launch_second_order(x: Tensor, scale: Tensor, bias: Tensor,
         g_bias.data_ptr(), g_dy.data_ptr(), sums.data_ptr(),
         group_sums.data_ptr(), _DTYPE_CODES[x.dtype], b, hw, c, groups, *t,
         negative_slope, stream), "second-order")
-    _launch_second_order.launches += 1
+    trace.count("fused_norm._launch_second_order.launches")
     return g_x, g_scale, g_bias, g_dy
 
 
-_launch_second_order.launches = 0
+trace.declare("fused_norm._launch_second_order.launches")
 
 
 # ---------------------------------------------------------------------------
@@ -530,7 +530,7 @@ class _GroupNormActBwd(torch.autograd.Function):
         differentiates the same references and has no TPU kernel."""
         x, scale, bias, mean, rstd, dy = ctx.saved_tensors
         if not g_dx.is_contiguous():
-            group_norm_act.layout_copies += 1
+            trace.count("group_norm_act.layout_copies")
             g_dx = g_dx.contiguous()
         with torch.no_grad():
             out = _second_order(x, scale, bias, mean, rstd, dy, g_dx,
@@ -560,7 +560,7 @@ class _GroupNormActFwd(torch.autograd.Function):
         x, scale, bias, mean, rstd = ctx.saved_tensors
         if not dy.is_contiguous():
             # The kernels take [B, HW, C] contiguous, i.e. channels_last.
-            group_norm_act.layout_copies += 1
+            trace.count("group_norm_act.layout_copies")
             dy = dy.contiguous()
         dx, dscale, dbias = _GroupNormActBwd.apply(x, scale, bias, mean,
                                                    rstd, dy, *ctx.config)
@@ -586,14 +586,14 @@ def group_norm_act(x: Tensor, scale: Tensor, bias: Tensor, *, groups: int,
         raise ValueError(f"channels {c} not divisible by groups {groups}")
     rows = x.permute(0, 2, 3, 1)
     if not rows.is_contiguous():
-        group_norm_act.layout_copies += 1
+        trace.count("group_norm_act.layout_copies")
         rows = rows.contiguous()
     y = _GroupNormActFwd.apply(rows.view(b, h * w, c), scale, bias, groups,
                                float(negative_slope), float(eps))
     return y.view(b, h, w, c).permute(0, 3, 1, 2)
 
 
-group_norm_act.layout_copies = 0
+trace.declare("group_norm_act.layout_copies")
 
 
 class FusedGroupNormAct(nn.Module):

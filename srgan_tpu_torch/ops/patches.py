@@ -18,9 +18,7 @@ Each comes in three functions:
   On a CUDA tensor it launches its hand-written kernel of
   ``csrc/patches.cu`` (built at first use) on the launch plan of
   :func:`sampler_plan`, or raises; on a CPU tensor, and only there, it runs
-  the plain version. Every launch adds one to the wrapper's ``launches``
-  (a replay of a captured training chunk adds the launches its capture
-  made: ``utils/cuda_graph.py``);
+  the plain version;
 * the same function in plain PyTorch (``*_plain``), on any device. The CPU
   tests use it; ``chip_smoke.py`` holds the kernel against it on the card.
   It synchronizes (a bounds check), so it raises under CUDA graph capture;
@@ -41,6 +39,7 @@ import numpy as np
 import torch
 
 from srgan_tpu_torch.ops import _build
+from srgan_tpu_torch.utils import trace
 
 _DTYPE_CODES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 
@@ -126,7 +125,7 @@ def extract_patches(images: torch.Tensor, offsets: torch.Tensor,
                            plan)
 
 
-extract_patches.launches = 0
+trace.declare("extract_patches.launches")
 
 
 def _launch_patches(images: torch.Tensor, indices: torch.Tensor,
@@ -146,7 +145,7 @@ def _launch_patches(images: torch.Tensor, indices: torch.Tensor,
     if code != 0:
         raise RuntimeError(f"patches kernel launch failed: "
                            f"{lib.srgan_cuda_error_string(code).decode()}")
-    extract_patches.launches += 1
+    trace.count("extract_patches.launches")
     return out
 
 
@@ -471,7 +470,7 @@ def extract_rescaled_patches(images: torch.Tensor, offsets: torch.Tensor,
                             window_sizes, scale, shift, preserve_mass, plan)
 
 
-extract_rescaled_patches.launches = 0
+trace.declare("extract_rescaled_patches.launches")
 
 
 def _launch_rescaled(images: torch.Tensor, indices: torch.Tensor,
@@ -498,7 +497,7 @@ def _launch_rescaled(images: torch.Tensor, indices: torch.Tensor,
     if code != 0:
         raise RuntimeError(f"rescaled patches kernel launch failed: "
                            f"{lib.srgan_cuda_error_string(code).decode()}")
-    extract_rescaled_patches.launches += 1
+    trace.count("extract_rescaled_patches.launches")
     return out
 
 

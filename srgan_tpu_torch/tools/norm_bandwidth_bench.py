@@ -40,6 +40,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from srgan_tpu_torch.ops import _build
+from srgan_tpu_torch.utils import trace
 from srgan_tpu_torch.utils.device import default_device
 from srgan_tpu_torch.utils.timing import cuda_ms
 
@@ -106,11 +107,11 @@ def copy(x: torch.Tensor, layout: str, rows: int = 0,
     if code != 0:
         raise RuntimeError(f"copy kernel launch failed: "
                            f"{lib.srgan_cuda_error_string(code).decode()}")
-    copy.launches += 1
+    trace.count("copy.launches")
     return out
 
 
-copy.launches = 0
+trace.declare("copy.launches")
 
 
 def _output(x: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:

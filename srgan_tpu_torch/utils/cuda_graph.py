@@ -29,34 +29,26 @@ each key after it is captured, then replayed; every other chunk is a
 replay. A capture or a replay that fails raises: nothing falls back to
 eager steps.
 
-The kernel wrappers count a launch when Python calls them
-(``extract_patches.launches`` and the others of :func:`kernel_counters`),
-which under capture enqueues nothing: a capture takes back what it
-counted, and each replay adds it, so that every counter still counts the
-launches the card ran. :attr:`TrainChunk.captures` and
-:attr:`TrainChunk.replays` count the captures and replays of every chunk.
+The program's counters (``utils/trace.py``) count when Python runs the
+code that counts, which under capture enqueues nothing: a capture takes
+back every counter's change, and each replay adds it again, so that every
+counter counts what the card ran. ``TrainChunk.captures`` and
+``TrainChunk.replays`` count the captures and replays of every chunk.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, List, Tuple
+from typing import Callable, Dict, Hashable, List
 
 import numpy as np
 import torch
 
+from srgan_tpu_torch.utils import trace
+
 Tensor = torch.Tensor
 
-
-def kernel_counters() -> Tuple:
-    """The wrappers whose ``launches`` count the kernels a training step
-    launches: the two samplers and the fused norm's forward, backward and
-    second order."""
-    from srgan_tpu_torch.ops import fused_norm
-    from srgan_tpu_torch.ops.patches import (extract_patches,
-                                             extract_rescaled_patches)
-    return (extract_patches, extract_rescaled_patches,
-            fused_norm._launch_fwd, fused_norm._launch_bwd,
-            fused_norm._launch_second_order)
+trace.declare("TrainChunk.captures")
+trace.declare("TrainChunk.replays")
 
 
 class TrainChunk:
@@ -68,9 +60,6 @@ class TrainChunk:
     {name: [K] tensor}; it must launch the same work whatever the
     arguments' values, and must not synchronize with the card.
     """
-
-    captures = 0
-    replays = 0
 
     def __init__(self, body: Callable[[Tensor], Dict[str, Tensor]],
                  num_steps: int, width: int, device: torch.device,
@@ -111,19 +100,14 @@ class TrainChunk:
     def _capture(self) -> tuple:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self._generator)
-        counters = kernel_counters()
-        before = [c.launches for c in counters]
         # thread_local: the window tier's stager thread goes on copying
         # on its own stream while this thread captures.
-        with torch.cuda.graph(graph, stream=self._stream,
-                              capture_error_mode="thread_local"):
+        with trace.taken_back() as counted, torch.cuda.graph(
+                graph, stream=self._stream,
+                capture_error_mode="thread_local"):
             outputs = self._body(self._args)
-        launches = []
-        for counter, n in zip(counters, before):
-            launches.append((counter, counter.launches - n))
-            counter.launches = n
-        TrainChunk.captures += 1
-        return graph, outputs, launches
+        trace.count("TrainChunk.captures")
+        return graph, outputs, counted
 
     def __call__(self, args: np.ndarray, key: Hashable = 0
                  ) -> Dict[str, Tensor]:
@@ -134,9 +118,8 @@ class TrainChunk:
             return outputs
         if key not in self._graphs:
             self._graphs[key] = self._capture()
-        graph, outputs, launches = self._graphs[key]
+        graph, outputs, counted = self._graphs[key]
         graph.replay()
-        for counter, n in launches:
-            counter.launches += n
-        TrainChunk.replays += 1
+        trace.add(counted)
+        trace.count("TrainChunk.replays")
         return outputs

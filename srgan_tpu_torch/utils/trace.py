@@ -28,9 +28,13 @@ returns one shared no-op context manager. A span that is on:
 :func:`take` hands the spans kept under the profiler over, with each
 counter's change since the first of them; nothing is written on the hot
 path. Spans that no one takes are dropped as the next span is entered
-with no profiler recording. :func:`counters` reads the launch counters
-where they live (the attributes keep their names; ``chip_smoke.py`` and
-the tests read them).
+with no profiler recording.
+
+The port's counters live here alone. A module declares each of its own
+once, at import (:func:`declare`), and adds to it where it counts
+(:func:`count`: one dict update, no lock); :func:`counters` reads them
+all. A CUDA graph's capture counts inside :func:`taken_back`, and each
+replay adds back what it took (:func:`add`).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 from torch._C._profiler import _RecordFunctionFast
@@ -48,6 +52,7 @@ from torch.autograd import profiler as _profiler
 KEEP_AT_MOST = 200_000
 
 _NOOP = contextlib.nullcontext()
+_counts: Dict[str, int] = {}
 _kept: List["_Open"] = []
 _baseline: Optional[Dict[str, int]] = None
 _lock = threading.Lock()
@@ -164,33 +169,44 @@ def take() -> Recording:
                           s.start_ns, s.end_ns, a, b,
                           None if a is None else b - a - s.children_ms))
     now = counters()
-    counts = {k: now[k] - (baseline or now)[k] for k in now}
+    baseline = baseline or now
+    counts = {k: v - baseline.get(k, 0) for k, v in now.items()}
     return Recording(spans, counts)
 
 
+def declare(name: str) -> None:
+    """Declare the counter ``name``, at 0; a name is declared once."""
+    if name in _counts:
+        raise ValueError(f"counter {name!r} is declared twice")
+    _counts[name] = 0
+
+
+def count(name: str) -> None:
+    """Add one to the declared counter ``name``."""
+    _counts[name] += 1
+
+
 def counters() -> Dict[str, int]:
-    """The launch and copy counters as they stand, by the name they live
-    under."""
-    from srgan_tpu_torch.models.dcgan import conv
-    from srgan_tpu_torch.ops import fused_norm
-    from srgan_tpu_torch.ops.density import density_maps
-    from srgan_tpu_torch.ops.patches import (extract_patches,
-                                             extract_rescaled_patches)
-    from srgan_tpu_torch.utils.cuda_graph import TrainChunk
-    return {
-        "extract_patches.launches": extract_patches.launches,
-        "extract_rescaled_patches.launches":
-            extract_rescaled_patches.launches,
-        "fused_norm._launch_fwd.launches": fused_norm._launch_fwd.launches,
-        "fused_norm._launch_bwd.launches": fused_norm._launch_bwd.launches,
-        "fused_norm._launch_second_order.launches":
-            fused_norm._launch_second_order.launches,
-        "group_norm_act.layout_copies":
-            fused_norm.group_norm_act.layout_copies,
-        "density_maps.launches": density_maps.launches,
-        "TrainChunk.captures": TrainChunk.captures,
-        "TrainChunk.replays": TrainChunk.replays,
-        "conv.second_order": conv.second_order,
-        "conv.dilated_second_order": conv.dilated_second_order,
-        "conv.layout_copies": conv.layout_copies,
-    }
+    """Every declared counter as it stands, by name."""
+    return dict(_counts)
+
+
+@contextlib.contextmanager
+def taken_back() -> Iterator[Dict[str, int]]:
+    """Takes back, at the block's end, each counter's change inside it,
+    and fills the dict it yields with the changes (the counters that
+    moved), which :func:`add` adds again."""
+    before = counters()
+    moved: Dict[str, int] = {}
+    yield moved
+    for name, value in _counts.items():
+        change = value - before.get(name, 0)
+        if change:
+            moved[name] = change
+            _counts[name] -= change
+
+
+def add(changes: Dict[str, int]) -> None:
+    """Add each change of :func:`taken_back` to its counter."""
+    for name, change in changes.items():
+        _counts[name] += change

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from srgan_tpu_torch.tools import norm_bandwidth_bench as bandwidth
+from srgan_tpu_torch.utils import trace
 
 
 @pytest.mark.parametrize("layout,rows", [("per_example", 0),
@@ -16,9 +17,10 @@ from srgan_tpu_torch.tools import norm_bandwidth_bench as bandwidth
 def test_plain_copy_is_exact_in_both_layouts(layout, rows):
     x = torch.randn((3, 192, 64), generator=torch.Generator().manual_seed(0)
                     ).to(torch.bfloat16)
-    before = bandwidth.copy.launches
+    before = trace.counters()["copy.launches"]
     got = bandwidth.copy(x, layout, rows)
-    assert bandwidth.copy.launches == before  # a CPU tensor: no kernel
+    # A CPU tensor: no kernel.
+    assert trace.counters()["copy.launches"] == before
     assert got.data_ptr() != x.data_ptr() and torch.equal(got, x)
 
 

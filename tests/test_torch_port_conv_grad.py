@@ -28,7 +28,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from srgan_tpu_torch.apps.crowd import CrowdExperiment
 from srgan_tpu_torch.models.crowd import JointCNN
-from srgan_tpu_torch.models.dcgan import Conv, conv, same_padding
+from srgan_tpu_torch.models.dcgan import Conv, same_padding
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.train import init_train_state
 from srgan_tpu_torch.utils import trace
@@ -101,10 +101,11 @@ def test_penalty_gradients_match_autograds_double_backward(
         gp = sum(g.square().sum() for g in grads)
         return torch.autograd.grad(gp, [m.weight, m.bias, scale, x0])
 
-    before = conv.second_order, conv.dilated_second_order
+    names = ("conv.second_order", "conv.dilated_second_order")
+    before = [trace.counters()[n] for n in names]
     got = penalty_grads(Conv.forward)
-    assert (conv.second_order, conv.dilated_second_order) == (
-        before[0] + 1, before[1] + (dilation > 1))
+    assert [trace.counters()[n] for n in names] == [
+        before[0] + 1, before[1] + (dilation > 1)]
     want = penalty_grads(_native_conv)
     for name, g, w in zip(["weight", "bias", "scale", "input"], got, want):
         torch.testing.assert_close(g, w, rtol=RTOL,

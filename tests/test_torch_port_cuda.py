@@ -23,6 +23,7 @@ from srgan_tpu_torch.ops.patches import (extract_patches,
                                          extract_rescaled_patches,
                                          extract_rescaled_patches_plain)
 from srgan_tpu_torch.tools import norm_bandwidth_bench as bandwidth
+from srgan_tpu_torch.utils import trace
 
 N, H, W, P, B = 3, 80, 96, 32, 6
 
@@ -31,6 +32,13 @@ pytestmark = [
     pytest.mark.skipif("not torch.cuda.is_available()",
                        reason="the CUDA kernels need a card and nvcc"),
 ]
+
+
+def _change(before, *names):
+    """Each counter of ``names``' change since the snapshot ``before``
+    of ``trace.counters()``."""
+    now = trace.counters()
+    return tuple(now[n] - before[n] for n in names)
 
 
 def _inputs(dtype, channels, n=N, h=H, w=W, p=P, b=B):
@@ -83,11 +91,11 @@ PATCH_CASES = [  # (dtype, channels, scale, shift)
 def test_patch_kernel_equals_plain(dtype, channels, scale, shift, geometry):
     n, h, w, p, b = geometry
     images, indices, offsets, flips = _inputs(dtype, channels, n, h, w, p, b)
-    before = extract_patches.launches
+    before = trace.counters()
     got = extract_patches(images, offsets, flips, patch_size=p, scale=scale,
                           shift=shift, indices=indices)
     torch.cuda.synchronize()
-    assert extract_patches.launches == before + 1
+    assert _change(before, "extract_patches.launches") == (1,)
     want = extract_patches_plain(images, offsets, flips, patch_size=p,
                                  scale=scale, shift=shift, indices=indices)
     # Exact: the kernel rounds the multiply and the add separately.
@@ -148,10 +156,10 @@ def test_rescale_kernel_equals_plain(windows, dtype, channels, scale, shift,
     offsets = offsets.to(torch.int32).contiguous()
     kw = dict(patch_size=p, window_sizes=windows, scale=scale, shift=shift,
               preserve_mass=mass, indices=indices)
-    before = extract_rescaled_patches.launches
+    before = trace.counters()
     got = extract_rescaled_patches(images, offsets, flips, sidx, **kw)
     torch.cuda.synchronize()
-    assert extract_rescaled_patches.launches == before + 1
+    assert _change(before, "extract_rescaled_patches.launches") == (1,)
     want = extract_rescaled_patches_plain(images, offsets, flips, sidx, **kw)
     tol = (1e-6 if dtype == torch.uint8
            else 1e-5 * float(want.abs().max()))
@@ -209,13 +217,13 @@ def _within(got, want, rel):
 def test_fused_norm_kernels_equal_plain(shape, groups, slope, dtype):
     x, scale, bias, dy = _norm_inputs(shape, dtype)
     rel = 1e-5 if dtype == torch.float32 else 2 ** -7
-    before = (fn._launch_fwd.launches, fn._launch_bwd.launches)
+    before = trace.counters()
     y, mean, rstd = fn._launch_fwd(x, scale, bias, groups, slope, 1e-6)
     dx, dscale, dbias = fn._launch_bwd(x, scale, bias, mean, rstd, dy,
                                        groups, slope)
     torch.cuda.synchronize()
-    assert (fn._launch_fwd.launches, fn._launch_bwd.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert _change(before, "fused_norm._launch_fwd.launches",
+                   "fused_norm._launch_bwd.launches") == (1, 1)
     want_y, want_mean, want_rstd = fn.group_norm_act_fwd_plain(
         x, scale, bias, groups, slope, 1e-6)
     assert y.dtype == dtype and dx.dtype == dtype
@@ -400,10 +408,11 @@ def test_fused_norm_second_order_kernel_equals_closed_form(
     if tiling is not None:
         tiling = tiling._replace(smem_bytes=fn._smem_bytes(
             shape[2], tiling.resident_rows, args[0].element_size(), 3))
-    before = fn._launch_second_order.launches
+    before = trace.counters()
     got = fn._launch_second_order(*args, groups, 0.2, tiling=tiling)
     torch.cuda.synchronize()
-    assert fn._launch_second_order.launches == before + 1
+    assert _change(before, "fused_norm._launch_second_order.launches") == (
+        1,)
     _second_order_within(
         got, fn.group_norm_act_bwd_vjp_plain(*args, groups, 0.2))
 
@@ -472,11 +481,12 @@ def test_fused_norm_second_order_through_the_kernels():
         y, _, _ = fn.group_norm_act_fwd_plain(rows, s, bias, 32, 0.2, 1e-6)
         return y.view(b, h, h, c).permute(0, 3, 1, 2)
 
-    before = fn._launch_bwd.launches, fn._launch_second_order.launches
+    before = trace.counters()
     got = penalty(lambda xi, s: fn.group_norm_act(
         xi, s, bias, groups=32, negative_slope=0.2))
-    assert fn._launch_bwd.launches >= before[0] + 2
-    assert fn._launch_second_order.launches == before[1] + 1
+    bwd, second = _change(before, "fused_norm._launch_bwd.launches",
+                          "fused_norm._launch_second_order.launches")
+    assert bwd >= 2 and second == 1
     torch.testing.assert_close(got, penalty(plain), rtol=1e-3, atol=1e-6)
 
 
@@ -609,10 +619,10 @@ def test_density_kernel_equals_plain(b, n, h, w, sigma):
         heads[i, c:] = np.nan
     heads_t = torch.from_numpy(heads).to(dev)
     counts_t = torch.from_numpy(counts).to(dev)
-    before = density_maps.launches
+    before = trace.counters()
     got = density_maps(heads_t, counts_t, sigma, height=h, width=w)
     torch.cuda.synchronize()
-    assert density_maps.launches == before + 1
+    assert _change(before, "density_maps.launches") == (1,)
     want = density_maps_plain(heads_t, counts_t, sigma, height=h, width=w)
     assert got.shape == (b, h, w) and bool(torch.isfinite(got).all())
     _assert_density_within(got, want)
@@ -734,12 +744,12 @@ def test_copy_kernel_is_exact(shape, layout, rows):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-    before = bandwidth.copy.launches
+    before = trace.counters()
     got = bandwidth.copy(x, layout, rows)
     out = torch.full_like(x, float("nan"))
     into = bandwidth.copy(x, layout, rows, out)
     torch.cuda.synchronize()
-    assert bandwidth.copy.launches == before + 2
+    assert _change(before, "copy.launches") == (2,)
     assert into.data_ptr() == out.data_ptr()
     assert torch.equal(got, x) and torch.equal(out, x)
     assert torch.equal(bandwidth.copy_plain(x, layout, rows), x)
@@ -906,8 +916,6 @@ def test_chunk_replays_are_their_eager_steps_bit_for_bit(tmp_path,
     deterministic algorithms in both; a throwaway step first, as in
     chip_smoke.py's phase 14 (a): the first step of a configuration in a
     process may differ from every later one by an ulp, graph or not)."""
-    from srgan_tpu_torch.utils.cuda_graph import TrainChunk
-
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     runs = []
     for chunked in (None, True, False):
@@ -915,7 +923,7 @@ def test_chunk_replays_are_their_eager_steps_bit_for_bit(tmp_path,
         args = exp._patch_args_stream()
         data = exp._device_data
         metrics = []
-        before = (TrainChunk.captures, TrainChunk.replays)
+        before = trace.counters()
         for _ in range(1 if chunked is None else 3):
             if chunked:
                 out = exp.dispatch_chunk(args)
@@ -929,8 +937,8 @@ def test_chunk_replays_are_their_eager_steps_bit_for_bit(tmp_path,
                 exp.state, m = exp._train_step(exp.state, *batch, exp._rng)
                 metrics.append({k: v.cpu() for k, v in m.items()})
         if chunked:
-            assert (TrainChunk.captures - before[0],
-                    TrainChunk.replays - before[1]) == (1, 2)
+            assert _change(before, "TrainChunk.captures",
+                           "TrainChunk.replays") == (1, 2)
         runs.append((metrics, {n: getattr(exp.state, n).state_dict()
                                for n in ("d", "g", "dnn")},
                      exp._rng.get_state(), exp.state.step))
@@ -951,8 +959,6 @@ def test_spans_leave_chunks_bit_for_bit_and_a_replay_is_one_span(
     above): metrics and models bit for bit. Each chunk is one host-only
     ``loop.chunk`` span; the eager chunk's step phases are timed on the
     card, the capture's are host-only, and a replay has none."""
-    from srgan_tpu_torch.utils import trace
-
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
     warm = _manual_crowd(tmp_path)
     warm.dispatch_chunk(warm._patch_args_stream())
@@ -1013,32 +1019,48 @@ def test_each_replay_draws_from_where_the_generator_stands():
 
 
 def test_launch_counters_count_what_a_replay_runs():
-    """A chunk of 2 sampler calls: 2 launches counted a chunk, eager,
-    captured and replayed alike; one capture, two replays."""
+    """A chunk of 2 steps, each a sampler call and the weight gradient of
+    a penalty through one ``Conv``: 2 sampler launches and 2 second
+    orders of the convolution counted a chunk, eager, captured and
+    replayed alike; one capture, two replays."""
+    from srgan_tpu_torch.models.dcgan import Conv
     from srgan_tpu_torch.utils.cuda_graph import TrainChunk
 
     images, indices, offsets, flips = _inputs(torch.uint8, 3)
     dev = images.device
+    layer = Conv(3, 4, 3, dtype=torch.float32,
+                 rng=torch.Generator().manual_seed(0)).to(dev)
+
+    def penalty_grad(x):
+        xi = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        (g,) = torch.autograd.grad(layer(xi).square().sum(), xi,
+                                   create_graph=True)
+        return torch.autograd.grad(g.square().sum(), layer.weight)[0]
 
     def body(args):
         rows = [extract_patches(images, offsets, flips, patch_size=P,
                                 indices=(indices + r[0]) % N) for r in args]
-        return {"patches": torch.stack(rows)}
+        return {"patches": torch.stack(rows),
+                "grads": torch.stack([penalty_grad(x) for x in rows])}
 
     chunk = TrainChunk(body, 2, 1, dev, torch.Generator(dev))
-    before = (extract_patches.launches, TrainChunk.captures,
-              TrainChunk.replays)
+    start = trace.counters()
     for c in range(3):
-        out = chunk(np.array([[c], [c + 1]], np.int32))["patches"]
+        before = trace.counters()
+        out = chunk(np.array([[c], [c + 1]], np.int32))
         torch.cuda.synchronize()
-        assert extract_patches.launches - before[0] == 2 * (c + 1)
+        assert _change(before, "extract_patches.launches",
+                       "conv.second_order") == (2, 2)
         for r in range(2):
             want = extract_patches_plain(images, offsets, flips,
                                          patch_size=P,
                                          indices=(indices + c + r) % N)
-            torch.testing.assert_close(out[r], want, rtol=0, atol=0)
-    assert (TrainChunk.captures - before[1],
-            TrainChunk.replays - before[2]) == (1, 2)
+            torch.testing.assert_close(out["patches"][r], want, rtol=0,
+                                       atol=0)
+            torch.testing.assert_close(out["grads"][r], penalty_grad(want),
+                                       rtol=1e-4, atol=1e-5)
+    assert _change(start, "TrainChunk.captures",
+                   "TrainChunk.replays") == (1, 2)
 
 
 def test_a_plain_sampler_under_capture_raises():

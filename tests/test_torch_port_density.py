@@ -13,6 +13,7 @@ from srgan_tpu.ops.density import density_maps as jax_density_maps
 from srgan_tpu.ops.density import density_maps_reference
 from srgan_tpu_torch.ops import density
 from srgan_tpu_torch.ops.density import density_maps
+from srgan_tpu_torch.utils import trace
 
 TOL = dict(rtol=1e-4, atol=1e-6)
 
@@ -126,9 +127,9 @@ def test_counts_past_the_slots_are_clamped_as_in_jax():
 
 def test_cpu_tensors_launch_no_kernel():
     heads, counts = _random_heads()
-    before = density_maps.launches
+    before = trace.counters()["density_maps.launches"]
     _ours(heads, counts, 2.0, 32, 48)
-    assert density_maps.launches == before
+    assert trace.counters()["density_maps.launches"] == before
 
 
 # The render kernel's launch plan and its culling, on the CPU: the kernel

@@ -39,7 +39,12 @@ from srgan_tpu.ops import fused_norm as jfn
 from srgan_tpu_torch import convert
 from srgan_tpu_torch.models.crowd import CrowdDCGenerator, JointCNN
 from srgan_tpu_torch.ops import fused_norm as fn
+from srgan_tpu_torch.utils import trace
 from srgan_tpu_torch.utils.seeding import generator_for
+
+_LAUNCHES = ("fused_norm._launch_fwd.launches",
+             "fused_norm._launch_bwd.launches",
+             "fused_norm._launch_second_order.launches")
 
 # Shape families of tests/test_fused_norm.py, and G's first stage
 # (1024 channels in 32 groups: 32 channels per group).
@@ -231,8 +236,7 @@ def test_second_order_on_the_cpu_runs_the_closed_form(monkeypatch):
 
     closed_form = fn.group_norm_act_bwd_vjp_plain
     monkeypatch.setattr(fn, "group_norm_act_bwd_vjp_plain", spy)
-    launches = (fn._launch_fwd.launches, fn._launch_bwd.launches,
-                fn._launch_second_order.launches)
+    before = trace.counters()
     x, scale, bias = _inputs((2, 4, 4, 64), 6)
     ts = torch.from_numpy(scale).requires_grad_()
     tx = _nchw(x).requires_grad_()
@@ -241,16 +245,16 @@ def test_second_order_on_the_cpu_runs_the_closed_form(monkeypatch):
     (g,) = torch.autograd.grad(y.square().sum(), tx, create_graph=True)
     torch.autograd.grad(g.square().sum(), ts)
     assert calls == [True]
-    copies = fn.group_norm_act.layout_copies
+    copies = trace.counters()["group_norm_act.layout_copies"]
     dx, _, _ = fn._GroupNormActBwd.apply(
         tx.detach().permute(0, 2, 3, 1).reshape(2, 16, 64), ts,
         torch.from_numpy(bias), torch.zeros(2, 32), torch.ones(2, 32),
         torch.ones(2, 16, 64, requires_grad=True), 32, 0.2)
     torch.autograd.grad(dx, ts, torch.ones(2, 64, 16).mT)
     assert calls == [True, True]
-    assert fn.group_norm_act.layout_copies == copies + 1
-    assert (fn._launch_fwd.launches, fn._launch_bwd.launches,
-            fn._launch_second_order.launches) == launches
+    now = trace.counters()
+    assert now["group_norm_act.layout_copies"] == copies + 1
+    assert all(now[n] == before[n] for n in _LAUNCHES)
 
 
 @pytest.mark.parametrize("by", ["grad", "backward"])
@@ -345,11 +349,12 @@ def test_no_fallback_off_the_cpu():
     """Off the CPU the Functions launch the kernels or raise: a tensor on
     another device reaches the launcher, which refuses it; CPU calls run
     the plain versions and launch nothing."""
-    fwd, bwd = fn._launch_fwd.launches, fn._launch_bwd.launches
+    before = trace.counters()
     x = torch.randn(2, 8, 4, 4, requires_grad=True)
     ones, zeros = torch.ones(8), torch.zeros(8)
     fn.group_norm_act(x, ones, zeros, groups=4).sum().backward()
-    assert (fn._launch_fwd.launches, fn._launch_bwd.launches) == (fwd, bwd)
+    now = trace.counters()
+    assert all(now[n] == before[n] for n in _LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
         rows = torch.zeros(2, 16, 8)
         fn._launch_second_order(rows, ones, zeros, torch.zeros(2, 4),

@@ -13,6 +13,7 @@ from srgan_tpu_torch.ops.patches import (extract_patches,
                                          extract_patches_plain,
                                          extract_patches_reference,
                                          sampler_plan)
+from srgan_tpu_torch.utils import trace
 
 N, H, W, P, B = 3, 80, 96, 32, 6
 
@@ -93,11 +94,11 @@ def test_default_indices_and_bounds():
 
 def test_wrapper_on_cpu_launches_no_kernel():
     images, indices, offsets, flips = _inputs("uint8", 3)
-    before = extract_patches.launches
+    before = trace.counters()["extract_patches.launches"]
     extract_patches(torch.from_numpy(images), torch.from_numpy(offsets),
                     torch.from_numpy(flips), patch_size=P,
                     indices=torch.from_numpy(indices))
-    assert extract_patches.launches == before
+    assert trace.counters()["extract_patches.launches"] == before
 
 
 # The launch plan (``sampler_plan``) at the flagship's calls (the image and

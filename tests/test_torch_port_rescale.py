@@ -36,6 +36,7 @@ from srgan_tpu_torch.ops.patches import (_tap_table,
                                          tile_source_rows)
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.train import init_train_state
+from srgan_tpu_torch.utils import trace
 
 N, H, W, P = 3, 80, 96, 32
 FLOAT32_ULP_OF_ONE = 2.0 ** -23  # also one rounding of a value in [−1, 1]
@@ -136,12 +137,12 @@ def test_label_patch_keeps_the_mass_of_a_uniform_window(ws):
 def test_cpu_wrapper_launches_no_kernel():
     windows = (24, 32, 40)
     images, _, offs, flips, sidx, idx = _sampler_inputs(windows)
-    before = extract_rescaled_patches.launches
+    before = trace.counters()["extract_rescaled_patches.launches"]
     got = extract_rescaled_patches(
         torch.from_numpy(images), torch.from_numpy(offs),
         torch.from_numpy(flips), torch.from_numpy(sidx), patch_size=P,
         window_sizes=windows, indices=torch.from_numpy(idx))
-    assert extract_rescaled_patches.launches == before
+    assert trace.counters()["extract_rescaled_patches.launches"] == before
     assert got.device.type == "cpu" and got.dtype == torch.float32
 
 

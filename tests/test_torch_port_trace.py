@@ -4,11 +4,15 @@ profiler range; while one records they nest per thread, the SR-GAN
 and DNN-only steps, the loop and the crowd input emit theirs, only the
 step's phases record timing events, the device times come out of the
 events' clock less the children's, spans that no one takes are dropped
-once the profiler has stopped, and ``counters()`` reads the launch
-counters where they live."""
+once the profiler has stopped. The counters: the program declares
+exactly the names the metrics read, a module declares its own by itself,
+a name is declared once and counted only once declared, and what a
+capture takes back each replay adds again."""
 
 import json
 import os
+import subprocess
+import sys
 import threading
 
 import pytest
@@ -16,15 +20,23 @@ import torch
 
 from srgan_tpu_torch.apps.coefficient import CoefficientExperiment
 from srgan_tpu_torch.apps.crowd import CrowdExperiment
-from srgan_tpu_torch.models.dcgan import conv
-from srgan_tpu_torch.ops import fused_norm
-from srgan_tpu_torch.ops.density import density_maps
-from srgan_tpu_torch.ops.patches import (extract_patches,
-                                         extract_rescaled_patches)
 from srgan_tpu_torch.settings import Settings
 from srgan_tpu_torch.train import init_train_state
 from srgan_tpu_torch.utils import trace
-from srgan_tpu_torch.utils.cuda_graph import TrainChunk
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The counters the program declares once its crowd app is imported.
+PROGRAM_COUNTERS = {
+    "extract_patches.launches", "extract_rescaled_patches.launches",
+    "fused_norm._launch_fwd.launches", "fused_norm._launch_bwd.launches",
+    "fused_norm._launch_second_order.launches",
+    "group_norm_act.layout_copies", "density_maps.launches",
+    "TrainChunk.captures", "TrainChunk.replays", "conv.second_order",
+    "conv.dilated_second_order"}
+# This module's own counters, declared as any owner declares its own.
+PROBE, IDLE = "test_torch_port_trace.probe", "test_torch_port_trace.idle"
+trace.declare(PROBE)
+trace.declare(IDLE)
 
 GAN_STEP = ["step.d.forward", "step.d.penalty_grad", "step.d.backward",
             "step.d.adam", "step.g.forward", "step.g.backward", "step.g.adam",
@@ -198,22 +210,22 @@ def test_spans_that_no_one_takes_are_dropped_once_the_profiler_stops():
     assert trace.take().spans == []
 
 
-def test_the_counters_count_from_the_first_span_of_the_recording(
-        monkeypatch):
+def test_the_counters_count_from_the_first_span_of_the_recording():
     trace.take()
     with _profiler():
         with trace.span("loop.step"):
             pass
-    monkeypatch.setattr(TrainChunk, "replays", TrainChunk.replays + 5)
+    for _ in range(5):
+        trace.count(PROBE)
     with trace.span("loop.step"):  # no profiler: drops the baseline
         pass
     with _profiler():
         with trace.span("loop.step"):
-            monkeypatch.setattr(TrainChunk, "replays",
-                                TrainChunk.replays + 2)
+            trace.count(PROBE)
+            trace.count(PROBE)
         got = trace.take()
     assert _names(got.spans) == ["loop.step"]
-    assert got.counts["TrainChunk.replays"] == 2
+    assert got.counts[PROBE] == 2 and got.counts[IDLE] == 0
 
 
 @pytest.mark.parametrize("timed", [False, True])
@@ -308,28 +320,62 @@ def test_device_times_are_the_events_less_the_childrens(profiling,
     assert (by["c"].device_start_ms, by["c"].device_self_ms) == (40.0, 3.0)
 
 
-def test_counters_read_the_attributes_they_name(monkeypatch):
-    where = {"extract_patches.launches": (extract_patches, "launches"),
-             "extract_rescaled_patches.launches":
-                 (extract_rescaled_patches, "launches"),
-             "fused_norm._launch_fwd.launches":
-                 (fused_norm._launch_fwd, "launches"),
-             "fused_norm._launch_bwd.launches":
-                 (fused_norm._launch_bwd, "launches"),
-             "fused_norm._launch_second_order.launches":
-                 (fused_norm._launch_second_order, "launches"),
-             "group_norm_act.layout_copies":
-                 (fused_norm.group_norm_act, "layout_copies"),
-             "density_maps.launches": (density_maps, "launches"),
-             "TrainChunk.captures": (TrainChunk, "captures"),
-             "TrainChunk.replays": (TrainChunk, "replays"),
-             "conv.second_order": (conv, "second_order"),
-             "conv.dilated_second_order": (conv, "dilated_second_order"),
-             "conv.layout_copies": (conv, "layout_copies")}
-    for i, (owner, attr) in enumerate(where.values()):
-        monkeypatch.setattr(owner, attr, 1000 + i)
-    assert trace.counters() == {name: 1000 + i
-                                for i, name in enumerate(where)}
+def test_counters_read_the_attributes_they_name():
+    """Importing the crowd app, in a process of its own, declares the
+    program's counters and no other, each an int."""
+    code = ("import srgan_tpu_torch.apps.crowd; "
+            "from srgan_tpu_torch.utils import trace; "
+            "counts = trace.counters(); "
+            "print(sorted(counts), all(type(v) is int "
+            "for v in counts.values()))")
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.strip() == f"{sorted(PROGRAM_COUNTERS)} True"
+
+
+def test_a_module_declares_and_counts_its_own_counters(profiling):
+    """This module's counters, declared at its import, are read with the
+    program's: no list elsewhere names them."""
+    counts = trace.counters()
+    assert PROGRAM_COUNTERS | {PROBE, IDLE} <= set(counts)
+    assert all(type(v) is int for v in counts.values())
+    with trace.span("loop.step"):
+        trace.count(PROBE)
+    now = trace.counters()
+    assert (now[PROBE], now[IDLE]) == (counts[PROBE] + 1, counts[IDLE])
+    got = trace.take()
+    assert (got.counts[PROBE], got.counts[IDLE]) == (1, 0)
+
+
+def test_a_name_is_declared_once_and_counted_only_once_declared():
+    before = trace.counters()
+    with pytest.raises(ValueError, match="declared twice"):
+        trace.declare(PROBE)
+    with pytest.raises(ValueError, match="declared twice"):
+        trace.declare("conv.second_order")
+    with pytest.raises(KeyError, match="test_torch_port_trace.undeclared"):
+        trace.count("test_torch_port_trace.undeclared")
+    assert trace.counters() == before
+
+
+def test_what_a_capture_takes_back_each_replay_adds_again():
+    """``TrainChunk``'s capture counts its body inside ``taken_back``,
+    and each replay ``add``s what it handed over: the snapshot round
+    trips, and only the counters that moved are handed over."""
+    trace.count(PROBE)
+    before = trace.counters()
+    with trace.taken_back() as counted:
+        for _ in range(3):
+            trace.count(PROBE)
+    assert counted == {PROBE: 3}
+    assert trace.counters() == before
+    for replays in (1, 2):
+        trace.add(counted)
+        now = trace.counters()
+        assert now[PROBE] == before[PROBE] + 3 * replays
+        assert {k: v for k, v in now.items() if k != PROBE} == {
+            k: v for k, v in before.items() if k != PROBE}
 
 
 def test_a_chunk_is_one_loop_chunk_span_with_its_input_and_steps(
@@ -342,9 +388,6 @@ def test_a_chunk_is_one_loop_chunk_span_with_its_input_and_steps(
     recording = trace.take()
     now = trace.counters()
     assert recording.counts == {k: now[k] - before[k] for k in now}
-    assert now["group_norm_act.layout_copies"] == \
-        fused_norm.group_norm_act.layout_copies
-    assert now["TrainChunk.replays"] == TrainChunk.replays
     spans = recording.spans
     assert spans[0].name == "loop.chunk" and spans[0].parent is None
     assert _names(spans, "input.draws") == ["input.draws"] * 2
